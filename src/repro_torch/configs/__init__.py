@@ -1,0 +1,48 @@
+"""Architecture registry: ``get_config(arch_id)`` + smoke-size reductions.
+
+Only the archs the torch model can run are ported; the others keep their
+names here so that a lookup says where they stand instead of "unknown".
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS = ("llama3.1-8b",)
+
+_MODULES = {
+    "llama3.1-8b": "llama3_1_8b",
+}
+
+# Archs of the JAX package that later slices port (ROADMAP queue A).
+_NOT_YET_PORTED = (
+    "llama3.2-3b",
+    "qwen2.5-32b",
+    "command-r-35b",
+    "qwen3-0.6b",
+    "llama4-maverick-400b-a17b",
+    "phi3.5-moe-42b-a6.6b",
+    "jamba-1.5-large-398b",
+    "xlstm-125m",
+    "whisper-medium",
+    "internvl2-1b",
+)
+
+
+def _module(arch: str):
+    if arch in _NOT_YET_PORTED:
+        raise KeyError(f"arch {arch!r} is not ported to torch yet; it comes "
+                       f"with a later slice (ROADMAP queue A). Ported: "
+                       f"{list(ARCHS)}")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke()

@@ -1,0 +1,55 @@
+"""Public decode-attention wrapper: the CUDA kernel for CUDA tensors, the
+plain version for CPU tensors.
+
+The cache stays in the model's (B, T, KV, Dh) layout: the kernel reads it in
+place through strides; only the plain version works head-major.
+"""
+from __future__ import annotations
+
+import operator
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.kernel import decode_attention_bhd
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+
+def decode_attention(q, k, v, pos: int, scale: float | None = None):
+    """q: (B, H, Dh); k/v: (B, T, KV, Dh); pos: int — returns (B, H, Dh),
+    attending to cache positions <= pos.
+
+    On CUDA tensors it launches the kernel or raises;
+    ``decode_attention.launches`` counts the launches."""
+    pos = operator.index(pos)
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"expected q (B, H, Dh), k/v (B, T, KV, Dh); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    b, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if k.shape != (b, t, kv, dh) or v.shape != k.shape or h % kv:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if not 0 <= pos < t:
+        raise ValueError(f"pos {pos} outside the cache of length {t}")
+    g = h // kv
+    scale = scale if scale is not None else 1.0 / (dh ** 0.5)
+    if all(x.device.type == "cpu" for x in (q, k, v)):
+        out = decode_attention_ref(q.reshape(b, kv, g, dh), k.transpose(1, 2),
+                                   v.transpose(1, 2), pos, scale=scale)
+        return out.reshape(b, h, dh)
+    if not q.is_cuda:
+        raise ValueError(f"decode_attention: q on {q.device}")
+    if dh not in _build.HEAD_DIMS:
+        raise ValueError(f"decode_attention: head size {dh} not in "
+                         f"{_build.HEAD_DIMS}")
+    out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _build.check_strided(name, x, q.device)
+    if b:
+        decode_attention_bhd(q, k, v, out, pos, float(scale))
+        decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

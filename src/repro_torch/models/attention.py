@@ -1,0 +1,120 @@
+"""Grouped-query attention with RoPE, optional QKV bias / QK-norm, KV cache.
+
+Two entry points:
+  * ``attend_full``   — prefill over a whole sequence (causal or not), through
+    the flash-attention kernel,
+  * ``attend_decode`` — one new token against a pre-allocated KV cache,
+    through the decode-attention kernel.
+
+Activations keep the JAX package's (B, S, H, Dh) layout and the cache its
+(B, T, KV, Dh) layout; both kernels read them in place through strides.
+Query head h belongs to KV head h // (H / KV), as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import rmsnorm as _rmsnorm
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, T, KV, Dh)
+    v: torch.Tensor  # (B, T, KV, Dh)
+
+
+def init_attention(cfg: ModelConfig, generator: torch.Generator):
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dtype, device = cfg.compute_dtype, generator.device
+    p = {
+        "wq": dense_init(generator, (d, h, dh), dtype),
+        "wk": dense_init(generator, (d, kv, dh), dtype),
+        "wv": dense_init(generator, (d, kv, dh), dtype),
+        "wo": dense_init(generator, (h, dh, d), dtype, in_axis=0),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, dh), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((kv, dh), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((kv, dh), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=cfg.param_dtype, device=device)
+        p["k_norm"] = torch.ones((dh,), dtype=cfg.param_dtype, device=device)
+    return p
+
+
+def _project(x, w):
+    """x: (B, S, D); w: (D, heads, Dh) -> (B, S, heads, Dh)."""
+    b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+
+
+def _project_q(cfg, params, x):
+    q = _project(x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    if cfg.qk_norm:
+        q = _rmsnorm(q, {"scale": params["q_norm"]}, cfg.norm_eps)
+    return q
+
+
+def _project_kv(cfg, params, x):
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if cfg.qk_norm:
+        k = _rmsnorm(k, {"scale": params["k_norm"]}, cfg.norm_eps)
+    return k, v
+
+
+def _out_proj(params, out):
+    """out: (B, S, H, Dh) -> (B, S, D)."""
+    b, s = out.shape[:2]
+    wo = params["wo"]
+    return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def attend_full(cfg: ModelConfig, params, x, positions, causal=None):
+    """Full-sequence attention (prefill). Returns (out, KVCache)."""
+    causal = cfg.causal if causal is None else causal
+    q = _project_q(cfg, params, x)
+    k, v = _project_kv(cfg, params, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = fa_ops.flash_attention(q, k, v, causal=causal,
+                                 scale=1.0 / (cfg.d_head ** 0.5))
+    return _out_proj(params, out), KVCache(k=k, v=v)
+
+
+def attend_decode(cfg: ModelConfig, params, x, cache: KVCache, pos: int):
+    """One-token decode. ``x``: (B, 1, D); ``pos``: index of the new token.
+
+    Writes K/V at ``pos`` into ``cache`` in place (where the JAX package
+    donates the cache buffer) and attends to positions <= pos."""
+    b = x.shape[0]
+    q = _project_q(cfg, params, x)                   # (B,1,H,Dh)
+    k_new, v_new = _project_kv(cfg, params, x)       # (B,1,KV,Dh)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    cache.k[:, pos] = k_new[:, 0]
+    cache.v[:, pos] = v_new[:, 0]
+    out = da_ops.decode_attention(q[:, 0], cache.k, cache.v, pos,
+                                  scale=1.0 / (cfg.d_head ** 0.5))
+    return _out_proj(params, out[:, None]), cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                  dtype=None) -> KVCache:
+    """Zero-filled, as in the JAX package: a slot past the fill level never
+    holds NaN bits, whatever reads it."""
+    dtype = dtype or cfg.compute_dtype
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))

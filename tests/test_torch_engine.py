@@ -1,0 +1,83 @@
+"""The torch serving engine against the JAX one: greedy tokens, the
+``measure_throughput`` row schema, sampling, and the device contract."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.inference.engine import ServingEngine as JaxServingEngine
+from repro.inference.sampling import sample as jax_sample
+from repro.models.transformer import Model as JaxModel
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.inference.engine import ServingEngine
+from repro_torch.inference.sampling import sample
+from repro_torch.models.transformer import Model
+from repro_torch.weights import params_from_jax
+
+ARCH = "llama3.1-8b"
+
+
+def _engines():
+    """Both engines on the fp32 smoke model with the same weights."""
+    jcfg = jax_get_smoke_config(ARCH).scaled(compute_dtype=jnp.float32)
+    tcfg = get_smoke_config(ARCH).scaled(compute_dtype=torch.float32)
+    jmodel = JaxModel(jcfg)
+    params = jmodel.init(jax.random.key(0))
+    tmodel = Model(tcfg).load(
+        params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu"))
+    return (JaxServingEngine(jmodel, params),
+            ServingEngine(tmodel, device="cpu"))
+
+
+def test_greedy_tokens_match_jax():
+    jeng, teng = _engines()
+    prompts = np.random.default_rng(0).integers(0, 256, (2, 8), dtype=np.int32)
+    jres = jeng.generate(prompts, 8)
+    tres = teng.generate(prompts, 8)
+    assert tres.tokens.shape == (2, 8) and tres.tokens.dtype == np.int32
+    np.testing.assert_array_equal(tres.tokens, jres.tokens)
+    assert tres.prefill_s > 0 and tres.decode_s > 0 and tres.tokens_per_s > 0
+
+
+def test_measure_throughput_rows_have_the_jax_schema():
+    jeng, teng = _engines()
+    jrows = jeng.measure_throughput(ii=6, oo=3, bb=2, reps=2)
+    trows = teng.measure_throughput(ii=6, oo=3, bb=2, reps=2)
+    assert len(trows) == len(jrows) == 2
+    for jr, tr in zip(jrows, trows):
+        assert list(tr) == list(jr)
+        assert (tr["ii"], tr["oo"], tr["bb"]) == (6, 3, 2)
+        assert all(isinstance(tr[k], float) and tr[k] > 0
+                   for k in ("thpt", "prefill_s", "decode_s"))
+
+
+def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Model(get_smoke_config(ARCH)).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(model, device="cuda")
+
+
+def test_sampling_matches_jax_greedy_and_masks_padding():
+    rng = np.random.default_rng(1)
+    logits = rng.standard_normal((4, 1, 512)).astype(np.float32)
+    logits[0, 0, 300] = 50.0            # in the vocab padding
+    logits[1, 0, [7, 9]] = 20.0         # a tie: the first maximum wins
+    got = sample(torch.from_numpy(logits), vocab_size=256)
+    want = jax_sample(jnp.asarray(logits), jax.random.key(0), vocab_size=256)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[1, 0] == 7
+
+    gen = torch.Generator().manual_seed(0)
+    draws = torch.cat([sample(torch.from_numpy(logits), gen, temperature=1.0,
+                              top_k=3, vocab_size=256) for _ in range(50)], 1)
+    top3 = np.argsort(logits[:, 0, :256], axis=-1)[:, -3:]
+    for row, allowed in zip(draws.numpy(), top3):
+        assert set(row) <= set(allowed)
+    with pytest.raises(ValueError, match="generator"):
+        sample(torch.from_numpy(logits), temperature=1.0)

@@ -1,0 +1,124 @@
+"""The torch kernels' plain versions (what the wrappers run on CPU tensors)
+against the JAX kernels' ``ref.py`` and their Pallas kernels in interpret
+mode, on the shape sweeps of ``test_kernels.py`` and at its tolerances:
+fp32 2e-5, bf16 2e-2.  The CUDA and Triton kernels themselves run only on a
+card: ``test_torch_gpu.py`` and ``chip_smoke.py`` hold them to these plain
+versions."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import ops as jda_ops
+from repro.kernels.flash_attention import ops as jfa_ops
+from repro.kernels.rmsnorm import ops as jrms_ops
+
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+_DTYPES = {"float32": (jnp.float32, torch.float32),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(dtype_name):
+    return dict(rtol=2e-2, atol=2e-2) if dtype_name == "bfloat16" \
+        else dict(rtol=2e-5, atol=2e-5)
+
+
+def _inputs(seed, shapes, dtype_name):
+    """The same seeded values as a JAX array and a torch tensor each."""
+    jdt, tdt = _DTYPES[dtype_name]
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _close(got, want, dtype_name):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_tol(dtype_name))
+
+
+# ---------------------------------------------------------------- rmsnorm --
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (1, 256), (17, 96)])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax(shape, dtype_name):
+    (jx,), (tx,) = _inputs(0, [shape], dtype_name)
+    scale = np.random.default_rng(1).standard_normal(shape[-1:])
+    scale = scale.astype(np.float32)
+    got = rms_ops.rmsnorm(tx, torch.from_numpy(scale))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    for force in ("ref", "interpret"):
+        _close(got, jrms_ops.rmsnorm(jx, jnp.asarray(scale), force=force,
+                                     block_rows=8), dtype_name)
+
+
+# ---------------------------------------------------------- flash attention --
+@pytest.mark.parametrize("b,h,kv,s,dh", [
+    (1, 4, 4, 128, 64),     # MHA
+    (2, 8, 2, 256, 64),     # GQA 4x
+    (1, 4, 1, 128, 128),    # MQA
+    (2, 6, 2, 64, 32),      # heads not multiple of 4
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_flash_attention_matches_jax(b, h, kv, s, dh, causal, dtype_name):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        2, [(b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)], dtype_name)
+    got = fa_ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    for force in ("ref", "interpret"):
+        _close(got, jfa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                            force=force, block_q=64,
+                                            block_k=64), dtype_name)
+
+
+# ---------------------------------------------------------- decode attention --
+@pytest.mark.parametrize("b,h,kv,t,dh", [
+    (2, 8, 2, 128, 64),
+    (1, 4, 4, 512, 128),
+    (4, 16, 8, 256, 64),
+])
+@pytest.mark.parametrize("pos_frac", [0.1, 0.5, 1.0])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_decode_attention_matches_jax(b, h, kv, t, dh, pos_frac, dtype_name):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        3, [(b, h, dh), (b, t, kv, dh), (b, t, kv, dh)], dtype_name)
+    pos = int((t - 1) * pos_frac)
+    got = da_ops.decode_attention(tq, tk, tv, pos)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    for force in ("ref", "interpret"):
+        _close(got, jda_ops.decode_attention(jq, jk, jv, jnp.int32(pos),
+                                             force=force, block_t=64),
+               dtype_name)
+
+
+def test_decode_attention_ignores_stale_cache():
+    """Entries beyond pos must not affect the output."""
+    _, (q, k, v) = _inputs(5, [(1, 4, 32), (1, 128, 2, 32), (1, 128, 2, 32)],
+                           "float32")
+    out1 = da_ops.decode_attention(q, k, v, 63)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 64:] = 99.0
+    v2[:, 64:] = -99.0
+    out2 = da_ops.decode_attention(q, k2, v2, 63)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("pos", [-1, 128])
+def test_decode_attention_rejects_pos_outside_cache(pos):
+    _, (q, k) = _inputs(6, [(1, 4, 32), (1, 128, 2, 32)], "float32")
+    with pytest.raises(ValueError, match="outside the cache"):
+        da_ops.decode_attention(q, k, k, pos)
+
+
+def test_cpu_wrappers_leave_launch_counters_at_zero():
+    _, (x, q, k) = _inputs(7, [(4, 64), (1, 16, 4, 32), (1, 16, 2, 32)],
+                           "float32")
+    rms_ops.rmsnorm(x, torch.ones(64))
+    fa_ops.flash_attention(q, k, k)
+    da_ops.decode_attention(q[:, 0], k, k, 9)
+    assert rms_ops.rmsnorm.launches == 0
+    assert fa_ops.flash_attention.launches == 0
+    assert da_ops.decode_attention.launches == 0
