@@ -18,6 +18,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.inference.sampling import sample
 from repro_torch.models.transformer import Model
 
@@ -28,15 +29,6 @@ class GenerationResult:
     prefill_s: float
     decode_s: float
     tokens_per_s: float         # output-token throughput (the paper's thpt)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the GPU; asking for it without CUDA raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; the serving path "
-                           "runs on the GPU unless device='cpu' is passed")
-    return dev
 
 
 class ServingEngine:

@@ -2,12 +2,17 @@
 on a CUDA card: the shape sweeps of ``test_kernels.py``, ragged lengths,
 llama3.1-8b widths and a cache holding NaN past the fill level; then the
 smoke model on the card against the same weights on the CPU.  Tolerances:
-fp32 2e-5, bf16 2e-2, as ``test_kernels.py``.  Every test needs a card and
+fp32 2e-5, bf16 2e-2, as ``test_kernels.py``.  The GBT-histogram kernel is
+held to its exact contract: the bits of numpy's float32 ``np.add.at``; the
+ALA's device paths (LM solve, forest traversal, bank distances) to their
+CPU contracts, and a small ALA run's histogram launches to its tree
+levels.  Every test needs a card and
 skips without one; this file imports no JAX, so it runs where only torch
 is installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +21,8 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gbt_hist import ops as gh_ops
+from repro_torch.kernels.gbt_hist.ref import gbt_hist_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.models.transformer import Model
@@ -135,3 +142,126 @@ def test_smoke_model_on_card_matches_cpu(cuda, dtype):
             fa_ops.flash_attention.launches - counts[1],
             da_ops.decode_attention.launches - counts[2]) == \
         (4 * n_norm, cfg.n_layers, 3 * cfg.n_layers)
+
+
+def _hist_inputs(seed, L, n, f, n_nodes, n_bins):
+    """Seeded (bins, grad, hess, node) with ids out of range mixed in."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-1, n_bins + 1, (L, n, f)).astype(np.int32),
+            rng.standard_normal((L, n)).astype(np.float32),
+            rng.random((L, n)).astype(np.float32),
+            rng.integers(-1, n_nodes + 1, (L, n)).astype(np.int32))
+
+
+def _add_at(bins, grad, hess, node, n_nodes, n_bins):
+    """float32 np.add.at in row order: the kernel's contract, bit for bit."""
+    L, n, f = bins.shape
+    out = np.zeros((L, n_nodes, f, n_bins, 2), np.float32)
+    ok = ((bins >= 0) & (bins < n_bins) & (node[..., None] >= 0)
+          & (node[..., None] < n_nodes))
+    li, ri, fi = np.nonzero(ok)
+    for k, w in enumerate((grad, hess)):
+        np.add.at(out, (li, node[li, ri], fi, bins[li, ri, fi], k), w[li, ri])
+    return out
+
+
+@pytest.mark.parametrize("L,n,f,n_nodes,n_bins", [
+    (1, 100, 3, 1, 16), (3, 48, 7, 16, 64), (15, 33, 7, 8, 64),
+    (1, 190, 24, 16, 4), (1, 8192, 8, 1, 64), (2, 3000, 5, 4, 300),
+    (1, 0, 2, 1, 8)])
+def test_gbt_hist_kernel_is_np_add_at_bit_for_bit(cuda, L, n, f, n_nodes,
+                                                   n_bins):
+    arrays = _hist_inputs(0, L, n, f, n_nodes, n_bins)
+    tensors = [torch.from_numpy(a).to(cuda) for a in arrays]
+    launches = gh_ops.build_node_histograms.launches
+    got = gh_ops.build_node_histograms(*tensors, n_nodes, n_bins)
+    again = gh_ops.build_node_histograms(*tensors, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert gh_ops.build_node_histograms.launches == launches + 2
+    want = _add_at(*arrays, n_nodes, n_bins)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got, gbt_hist_ref(*tensors, n_nodes, n_bins), rtol=0, atol=1e-4)
+
+
+def test_gbt_hist_kernel_batch_and_zero_weight_invariant(cuda):
+    bins, grad, hess, node = _hist_inputs(1, 6, 80, 7, 8, 64)
+    node = np.clip(node, 0, 7)
+    full = gh_ops.build_node_histograms(
+        *(torch.from_numpy(a).to(cuda) for a in (bins, grad, hess, node)),
+        8, 64)
+    alone = gh_ops.build_node_histograms(
+        *(torch.from_numpy(np.ascontiguousarray(a[2:3])).to(cuda)
+          for a in (bins, grad, hess, node)), 8, 64)
+    assert torch.equal(full[2:3], alone)
+    keep = np.random.default_rng(2).random(80) < 0.6
+    w = keep.astype(np.float32)
+    zeroed = gh_ops.build_node_histograms(
+        *(torch.from_numpy(a).to(cuda) for a in (
+            bins[:1], grad[:1] * w, hess[:1] * w, node[:1])), 8, 64)
+    compact = gh_ops.build_node_histograms(
+        *(torch.from_numpy(np.ascontiguousarray(a[:1, keep])).to(cuda)
+          for a in (bins, grad, hess, node)), 8, 64)
+    assert torch.equal(zeroed, compact)
+
+
+def test_lm_solve_is_batch_invariant_on_the_card(cuda):
+    from repro_torch.core import fit
+    rng = np.random.default_rng(3)
+    groups = [(np.arange(1.0, 11.0), 1000.0 - 800.0 * np.exp(
+        -0.2 * np.arange(1.0, 11.0)) + rng.normal(0, 5, 10),
+        np.array([800.0, 0.1, 1000.0])) for _ in range(7)]
+    full = fit.fit_exponential_groups(groups, pad_to=16)
+    for sel in ([2], [0, 5], [1, 3, 4, 6]):
+        np.testing.assert_array_equal(
+            fit.fit_exponential_groups([groups[i] for i in sel], pad_to=16),
+            full[sel])
+    np.testing.assert_allclose(full, fit.fit_exponential_groups(
+        groups, pad_to=16, device="cpu"), rtol=1e-4)
+
+
+def test_forest_traversal_and_bank_distances_on_the_card(cuda):
+    from repro_torch.core import gbt, uncertainty
+    from repro_torch.core.annealing import SALog
+    rng = np.random.default_rng(4)
+    X = rng.uniform(0, 10, (4, 120, 5))
+    Y = np.stack([X[..., 0] * 3 + X[..., 1], np.sin(X[..., 2])], -1)
+    forest = gbt.fit_packed_forest(X, Y, n_estimators=6, max_depth=3,
+                                   n_bins=16)
+    bins = forest.transform_bins(X)
+    np.testing.assert_array_equal(forest._apply_torch(bins),
+                                  forest._apply_numpy(bins))
+    train = tuple(rng.choice([1.0, 2.0, 4.0, 8.0], 200) for _ in range(3)) \
+        + (rng.uniform(10, 100, 200),)
+    universes = {k: np.array([1.0, 2.0, 4.0, 8.0]) for k in ("ii", "oo", "bb")}
+    subsets = [{k: frozenset(rng.choice(u, 2, replace=False).tolist())
+                for k, u in universes.items()} for _ in range(20)]
+    bank = uncertainty.build_subset_bank(train, SALog(
+        subsets, [1.0] * 20, universes, subsets[0], 1.0))
+    queries = [tuple(c[:50] for c in train), tuple(c[::3] for c in train)]
+    np.testing.assert_allclose(
+        uncertainty.bank_distances(bank, queries, backend="torch"),
+        uncertainty.bank_distances(bank, queries, backend="numpy"),
+        rtol=0, atol=1e-6)
+
+
+def test_small_ala_launches_one_histogram_kernel_per_tree_level(cuda):
+    from repro_torch.bench.datasets import (make_inhouse_dataset,
+                                            train_test_split)
+    from repro_torch.core import gbt
+    from repro_torch.core.ala import ALA
+    from repro_torch.core.annealing import SAConfig
+    train, test = train_test_split(make_inhouse_dataset(), 0.3)
+    ala = ALA()
+    ala.cfg.gbt_kw = dict(n_estimators=10, learning_rate=0.2, max_depth=4)
+    ala.cfg.sa = SAConfig(n_iters=2, gbt_kw=dict(n_estimators=5))
+    launches = gh_ops.build_node_histograms.launches
+    levels = gbt._joint_histograms.levels
+    ala.fit(*train.workload)
+    ala.explore(test.workload, n_chains=2)
+    ala.fit_error(n_estimators=10)
+    err, conf = ala.estimate(test.workload)
+    assert np.isfinite(err) and 0.0 < conf <= 1.0 + 1e-6
+    grown = gbt._joint_histograms.levels - levels
+    assert gh_ops.build_node_histograms.launches - launches == grown > 0
