@@ -10,24 +10,31 @@ Phases, each printing its own lines:
    limit as ``nvidia-smi`` prints them;
 2. build: ``nvcc`` builds the CUDA kernels from ``src/repro_torch/csrc``
    (one process per source, all at once) with their register and spill
-   counts; Triton compiles the RMSNorm kernel at its first launch;
+   counts; the tensor-core gate: ``cuobjdump -sass`` of the built
+   flash-attention library must show HMMA or HGMMA instructions in every
+   bf16 instantiation of the kernel; Triton compiles the RMSNorm kernel at
+   its first launch;
 3. each kernel against its plain PyTorch version on the card: the shape
    sweeps of ``tests/test_kernels.py``, ragged lengths, the llama3.1-8b
    widths and a cache holding NaN past the fill level, fp32 within 2e-5
-   and bf16 within 2e-2; the GBT-histogram kernel at the ALA's shapes and
-   8k x 8 within 1e-4, and bit for bit to its contract (float32
+   and bf16 within 2e-2; flash attention also at ragged S around its
+   64-row tiles for every head size, and on strided views whose
+   surroundings hold NaN; the GBT-histogram kernel at the ALA's shapes
+   and 8k x 8 within 1e-4, and bit for bit to its contract (float32
    ``np.add.at`` in row order, two launches, alone and in a batch,
    compacted and zero-weighted rows);
 4. each kernel timed with CUDA events at the main path's shapes, beside its
    bound, its plain version and one PyTorch library call computing the
-   same function;
+   same function; then the kernel's device ms per launch and the library
+   call's device ms per call, from one torch.profiler pass each;
 5. llama3.1-8b at full width cut to 2 layers, on the card through the
    kernels against the CPU through the plain versions, same weights;
 6. llama3.1-8b at full width (32 layers, bf16, seeded random weights)
    served by ``ServingEngine.measure_throughput``; the kernels' launch
    counters are zeroed before and must show the expected launches after;
 7. one traced prefill and 8 decode steps per cell (torch.profiler): the
-   device's busy share and the kernels that take its time;
+   device's busy share, the kernels that take its time and the port's own
+   kernels' share;
 8. serving rows as ALA input: ``measure_arch`` sweeps the full-width model
    over a small grid and the port's Alg 2 database is fitted on the rows;
 9. ALA on the card on ``inhouse`` with the quickstart settings (serial SA,
@@ -138,16 +145,22 @@ class Checks:
         return not self.failed
 
 
+def _kernel_name(symbol: str) -> str:
+    """A readable name for a mangled entry function of csrc/*.cu."""
+    m = re.search(r"([a-z_]+_fwd(?:_bf16|_fp32)?)I(13__nv_bfloat16|f)?Li(\d+)E",
+                  symbol)
+    if not m:
+        return "gbt_hist_kernel" if "gbt_hist_kernel" in symbol else symbol
+    dtype = {"f": "fp32, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
+    return f"{m[1]}<{dtype}{m[3]}>"
+
+
 def _ptxas_summary(log: str):
     """(kernel, registers, spill bytes) per entry function of a -v log."""
     rows, name, spill = [], None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"([a-z]+_fwd)I(13__nv_bfloat16|f)Li(\d+)E", line)
-            dtype = "fp32" if m and m[2] == "f" else "bf16"
-            name = (f"{m[1]}<{dtype}, {m[3]}>" if m else
-                    "gbt_hist_kernel" if "gbt_hist_kernel" in line
-                    else line.split("'")[1])
+            name = _kernel_name(line.split("'")[1])
         elif "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "Used" in line and "registers" in line and name:
@@ -172,6 +185,28 @@ def time_ms(fn, arg_sets, iters=60):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, arg_sets, kernel=None, calls=20):
+    """Device ms per launch of the CUDA kernels whose names hold ``kernel``,
+    or, with ``kernel=None``, device ms of all the work of one call, from
+    one torch.profiler pass over ``calls`` calls of ``fn`` after a warm-up;
+    raises if the trace holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and (kernel is None or kernel in e.name)]
+    if not events:
+        raise RuntimeError(f"the trace shows no device work of {kernel}")
+    n = calls if kernel is None else len(events)
+    return sum(e.device_time_total for e in events) / 1e3 / n
 
 
 def _n_sets(nbytes):
@@ -303,13 +338,20 @@ def k4_timing(rng, shape):
     nbytes = 4 * L * n * f + 3 * 4 * L * n + 2 * 4 * size
     got = gh_ops.build_node_histograms(*sets[0], nn, nb)
     want = gbt_hist_ref(*sets[0], nn, nb)
+
+    def kernel(*t):
+        return gh_ops.build_node_histograms(*t, nn, nb)
+
+    def library(flat, src):
+        return torch.zeros(size, 2, device="cuda").index_add_(0, flat, src)
+
     return dict(
         name="gbt_hist", shape=f"L{L} n{n} f{f} nodes{nn} bins{nb}",
-        check=(got, want),
-        ms=time_ms(lambda *t: gh_ops.build_node_histograms(*t, nn, nb), sets),
+        check=(got, want), ms=time_ms(kernel, sets),
         plain_ms=time_ms(lambda *t: gbt_hist_ref(*t, nn, nb), sets),
-        library_ms=time_ms(lambda flat, src: torch.zeros(
-            size, 2, device="cuda").index_add_(0, flat, src), lib_sets),
+        library_ms=time_ms(library, lib_sets),
+        device_ms=device_ms(kernel, sets, "gbt_hist_kernel"),
+        library_device_ms=device_ms(library, lib_sets),
         bound=_bound(nbytes, 2 * L * n * f, PEAK_FP32))
 
 
@@ -505,6 +547,21 @@ def main() -> int:
     for src, log in logs.items():
         for fn, regs, spill in _ptxas_summary(log):
             print(f"[2]   {src}: {fn}: {regs} registers, {spill} B spilled")
+    # the tensor-core gate: every bf16 instantiation of K2 runs its
+    # products on the tensor cores
+    fa_so = _build.load("flash_attention")
+    mma = {_kernel_name(k): n for k, n in
+           _build.tensor_core_counts("flash_attention").items()}
+    ok2 = bool(mma) and all(n > 0 for k, n in mma.items() if "bf16" in k) \
+        and sum("bf16" in k for k in mma) == len(_build.HEAD_DIMS)
+    for k, n in sorted(mma.items()):
+        dtype = 1 if "bf16" in k else 0
+        dh = int(re.search(r"(\d+)>$", k)[1])
+        print(f"[2]   flash_attention: {k}: {n} HMMA/HGMMA instructions, "
+              f"{fa_so.flash_attention_smem_bytes(dtype, dh)} B of dynamic "
+              f"shared memory a block")
+    print(f"[2] tensor-core gate (HMMA/HGMMA in every bf16 flash_attention "
+          f"kernel): {'ok' if ok2 else 'FAIL'}")
     t0 = time.perf_counter()
     rms_ops.rmsnorm(torch.ones((1, 64), device="cuda"),
                     torch.ones(64, device="cuda"))
@@ -522,20 +579,45 @@ def main() -> int:
             rms_c.add(shape, rms_ops.rmsnorm(x, scale), rmsnorm_ref(x, scale),
                       dt)
     fa_c = Checks("flash_attention")
+
+    def flash_want(q, k, v, causal):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal).transpose(1, 2)
+
+    # the sweeps of test_kernels.py, the llama widths, and ragged S around
+    # the 64-row tiles at every head size
     for b, h, kv, s, dh in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
                             (1, 4, 1, 128, 128), (2, 6, 2, 64, 32),
                             (1, 4, 2, 50, 16), (2, 32, 8, 512, 128),
-                            (2, 32, 8, 1000, 128)):
+                            (2, 32, 8, 1000, 128),
+                            *((2, 8, 2, s, dh)
+                              for s in (1, 63, 65, 127, 129, 1000)
+                              for dh in _build.HEAD_DIMS)):
         for causal in (True, False):
             for dt in (FP32, BF16):
                 q = _randn(gen, (b, s, h, dh), dt)
                 k = _randn(gen, (b, s, kv, dh), dt)
                 v = _randn(gen, (b, s, kv, dh), dt)
-                want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal=causal)
                 fa_c.add((b, h, kv, s, dh, causal),
                          fa_ops.flash_attention(q, k, v, causal=causal),
-                         want.transpose(1, 2), dt)
+                         flash_want(q, k, v, causal), dt)
+    # q, k, v as strided views into one buffer whose other rows, heads and
+    # columns hold NaN: a read outside the views would reach the output
+    for s in (65, 129):
+        for dh in (64, 128):
+            for causal in (True, False):
+                for dt in (FP32, BF16):
+                    buf = torch.full((2, s + 7, 14, dh + 16), math.nan,
+                                     dtype=dt, device="cuda")
+                    rows, cols = slice(3, 3 + s), slice(8, 8 + dh)
+                    q, k, v = (buf[:, rows, 0:8, cols],
+                               buf[:, rows, 9:11, cols],
+                               buf[:, rows, 12:14, cols])
+                    for x in (q, k, v):
+                        x.copy_(_randn(gen, x.shape, dt))
+                    fa_c.add(("strided, NaN around", s, dh, causal),
+                             fa_ops.flash_attention(q, k, v, causal=causal),
+                             flash_want(q, k, v, causal), dt)
     da_c = Checks("decode_attention")
     decode_cases = [(2, 8, 2, 128, 64), (1, 4, 4, 512, 128),
                     (4, 16, 8, 256, 64), (3, 4, 2, 77, 16)]
@@ -588,6 +670,10 @@ def main() -> int:
                 plain_ms=time_ms(rmsnorm_ref, sets),
                 library_ms=time_ms(lambda t, _s: torch.nn.functional.rms_norm(
                     t, (d,), wscale, 1e-5), sets),
+                device_ms=device_ms(rms_ops.rmsnorm, sets, "rmsnorm"),
+                library_device_ms=device_ms(
+                    lambda t, _s: torch.nn.functional.rms_norm(
+                        t, (d,), wscale, 1e-5), sets),
                 bound=_bound(nbytes, 4 * rows * d, PEAK_FP32)))
         # flash attention over the prompt, causal
         shp_q, shp_kv = (bb, ii, h, dh), (bb, ii, kv, dh)
@@ -611,6 +697,8 @@ def main() -> int:
                    fa_plain(q, k, v).transpose(1, 2)),
             ms=time_ms(fa_ops.flash_attention, sets),
             plain_ms=time_ms(fa_plain, sets), library_ms=time_ms(fa_lib, sets),
+            device_ms=device_ms(fa_ops.flash_attention, sets, "flash_fwd"),
+            library_device_ms=device_ms(fa_lib, sets),
             bound=_bound(nbytes, 4 * bb * h * dh * ii * (ii + 1) // 2,
                          PEAK_BF16)))
         # decode attention at the last step: the cache holds ii + oo - 1
@@ -641,6 +729,8 @@ def main() -> int:
             check=(da(q, k, v), da_plain(q, k, v)),
             ms=time_ms(da, sets), plain_ms=time_ms(da_plain, sets),
             library_ms=time_ms(da_lib, sets),
+            device_ms=device_ms(da, sets, "decode_fwd"),
+            library_device_ms=device_ms(da_lib, sets),
             bound=_bound(nbytes, 4 * bb * h * dh * (pos + 1), PEAK_BF16)))
         del sets, q, k, v
     timings += [k4_timing(rng, K4_MAIN), k4_timing(rng, K4_BIG)]
@@ -651,10 +741,12 @@ def main() -> int:
         ok4 = ok4 and (tm["err"] <= K4_TOL if tm["name"] == "gbt_hist"
                        else _close(got, want, BF16))
         bound_ms, bound_by = tm["bound"]
-        print(f"[4] {tm['name']} {tm['shape']}: kernel {tm['ms']:.4f} ms, "
-              f"bound {bound_ms:.3g} ms ({bound_by}), plain "
-              f"{tm['plain_ms']:.4f} ms, library {tm['library_ms']:.4f} ms, "
-              f"max err {tm['err']:.3g} [{smi}]")
+        print(f"[4] {tm['name']} {tm['shape']}: kernel {tm['ms']:.4f} ms "
+              f"(device {tm['device_ms']:.4f} ms a launch), bound "
+              f"{bound_ms:.3g} ms ({bound_by}), plain {tm['plain_ms']:.4f} ms, "
+              f"library {tm['library_ms']:.4f} ms (device "
+              f"{tm['library_device_ms']:.4f} ms a call), max err "
+              f"{tm['err']:.3g} [{smi}]")
         # the JSON line reports each kernel at the first cell's prefill
         # shape, and gbt_hist at the ALA predictor's first shape
         table.setdefault(tm["name"], tm)
@@ -744,9 +836,14 @@ def main() -> int:
                                 for name, n, ms in top[:6])
             ops = "; ".join(f"{name[:40]} x{n} {ms:.3f} ms"
                             for name, n, ms in host[:6])
+            ours = "; ".join(
+                f"{k} x{sum(n for name, n, _ in top if k in name)} "
+                f"{sum(ms for name, _, ms in top if k in name):.3f} ms"
+                for k in ("rmsnorm", "flash_fwd", "decode_fwd"))
             print(f"[7] {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
                   f"({100 * busy / wall:.1f}%); top kernels: {kernels}; "
-                  f"top host ops (self CPU): {ops} [{smi}]")
+                  f"the port's kernels: {ours}; top host ops (self CPU): "
+                  f"{ops} [{smi}]")
 
     # -- 8. serving rows as ALA input --------------------------------------
     from repro_torch.bench.harness import measure_arch
@@ -801,10 +898,12 @@ def main() -> int:
             launches=launches[name], max_abs_err=tm["err"], ms=tm["ms"],
             plain_ms=tm["plain_ms"], bound_ms=tm["bound"][0],
             bound_by=tm["bound"][1], library_ms=tm["library_ms"],
-            shape=tm["shape"]))
-    ok = (ok3 and ok4 and ok5 and ok6 and ok8 and ok9
+            device_ms=tm["device_ms"],
+            library_device_ms=tm["library_device_ms"], shape=tm["shape"]))
+    ok = (ok2 and ok3 and ok4 and ok5 and ok6 and ok8 and ok9
           and all(k["launches"] > 0 for k in kernels))
-    print(f"[10] phases: kernels {ok3}, timing shapes {ok4}, 2-layer {ok5}, "
+    print(f"[10] phases: tensor-core gate {ok2}, kernels {ok3}, timing shapes "
+          f"{ok4}, 2-layer {ok5}, "
           f"full width {ok6}, measure_arch {ok8}, ALA {ok9}; "
           f"{time.perf_counter() - t_start:.0f} s in all")
     if not ok:

@@ -7,30 +7,60 @@
 // diagonal are skipped and the diagonal tile is masked elementwise.
 //
 // What bounds it on the H100: the work is 4 * B * H * Dh * S(S+1)/2 flops
-// against reading q, k, v and writing o once.  At S = 512 (B 8, H 32,
-// KV 8, Dh 128, bf16) bytes bind: 0.025 ms of bytes at 3.35 TB/s against
-// 0.017 ms of operations on the bf16 tensor cores; operations bind only at
-// longer S.  This first version does the products with fp32 FMAs on the
-// CUDA cores (67 TFLOP/s, not the 989 of the bf16 tensor cores), which is
-// why it runs some 45x its bound; tensor cores (wgmma) and TMA loads are
-// later work.  What the design does meanwhile: one block owns a 64-row
-// query tile, so each K/V tile read from device memory serves 64 queries;
-// products read shared memory as float4, and each thread keeps a register
-// tile of scores (16) and of output rows (Dh / 4 for Dh = 128), so
-// shared-memory traffic stays a fraction of the FMA count.
+// against reading q, k, v and writing o once.  At both serving cells of
+// llama3.1-8b (B 8, S 512 and B 32, S 128; H 32, KV 8, Dh 128, bf16) the
+// bytes are 4,096 tokens x (2H + 2KV) x Dh x 2 B = 83.9 MB: 0.025 ms at
+// 3.35 TB/s, against 0.017 ms (S 512) and 0.004 ms (S 128) of operations
+// on the bf16 tensor cores.  Bytes bind; operations bind only at longer S.
 //
-// Unlike the TPU kernel it reads q, k, v in the model's (B, S, H | KV, Dh)
-// layout through strides (no transposed copies) and masks a ragged S
-// itself (no padding to the tile size).
+// The bf16 kernel (flash_fwd_bf16), the one the serving path runs, is
+// built to stream those bytes once and keep the tensor cores off the
+// critical path:
+//  - both products run as warpgroup wgmma on the bf16 tensor cores with
+//    fp32 accumulation: s = Q K^T as m64n64k16 with both operands in
+//    shared memory, acc += P V as m64n{Dh}k16 with P from registers;
+//  - operands stay bf16 in shared memory, in the 128-byte (64- or 32-byte
+//    at small Dh) swizzle that TMA writes and wgmma reads, so 8 rows never
+//    share a bank group;
+//  - one thread starts TMA loads (cp.async.bulk.tensor) of 64-key K and V
+//    tiles into a ring of two stages with mbarriers (K full, V full,
+//    empty; QK^T starts before V has landed).  It refills a stage once
+//    every warp has released it, so the copy of tile j + 1 runs under the
+//    products on tile j, and warpgroups drift apart instead of meeting at
+//    a block barrier each tile.  TMA reads nothing
+//    outside the (B, S, H | KV, Dh) view and fills rows past S with zeros
+//    (0 x NaN is NaN, so stale bits must never land);
+//  - the online softmax runs in registers on the accumulator fragments
+//    (row max and sum over the quad of lanes sharing a row, log2 domain);
+//    P is rounded to bf16 in registers as the A operand of P V, so scores
+//    never touch shared memory;
+//  - a block is two warpgroups of 64 query rows, 128 positions of one
+//    head, so each K/V tile loaded serves 128 rows; at 128 registers and
+//    97 KB of shared memory two blocks fit on an SM, and one's loads
+//    overlap the other's products.  Grouped-query reuse (the two
+//    warpgroups as two query heads of one KV head) was measured no faster
+//    on the H100, so a block takes one head;
+//  - causal: tiles above the diagonal are skipped, only the diagonal tile
+//    is masked; query tiles are handed out heaviest first (the tile index
+//    is the grid's slowest axis, reversed).
+// A producer warpgroup with setmaxnreg, intra-warpgroup overlap of the
+// next QK^T with this tile's softmax, and a persistent grid are later work.
+//
+// The fp32 kernel (flash_fwd_fp32) keeps the first port's FMA body on the
+// CUDA cores: the checks hold fp32 to 2e-5, which TF32 products would not
+// meet, and the serving path never sends fp32 here.
+//
+// Unlike the TPU kernel both read q, k, v in the model's (B, S, H | KV, Dh)
+// layout through strides (no transposed copies) and mask a ragged S
+// themselves (no padding to the tile size).
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
 using repro::NEG_INF;
-
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads per block
+using bf16 = __nv_bfloat16;
 
 struct FlashParams {
   const void* q;
@@ -46,13 +76,23 @@ struct FlashParams {
   int causal;
 };
 
+// ---------------------------------------------------------------- fp32 --
+
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 64;   // keys per tile
+constexpr int NT = 256;  // threads per block
+
 template <int DH>
-constexpr size_t smem_bytes() {
+constexpr size_t fp32_smem_bytes() {
   return (BQ * DH + BK * (DH + 4) + BQ * (BK + 4) + 3 * BQ) * sizeof(float);
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT) flash_fwd(FlashParams p) {
+// One block owns a 64-row query tile; products read shared memory as
+// float4, and each thread keeps a register tile of scores (16) and of
+// output rows (Dh / 4 for Dh = 128).
+template <int DH>
+__global__ void __launch_bounds__(NT) flash_fwd_fp32(FlashParams p) {
+  using T = float;
   constexpr int KP = DH + 4;        // padded row of the K / V tile
   constexpr int PP = BK + 4;        // padded row of the score tile
   constexpr int SSTEP = NT / BK;    // QK^T: a thread's rows step by this
@@ -179,37 +219,598 @@ __global__ void __launch_bounds__(NT) flash_fwd(FlashParams p) {
     const int r = pv_r + i * RSTEP;
     if (q0 + r < p.S) {
       o[static_cast<int64_t>(q0 + r) * p.o_ss + pv_c] =
-          repro::to_out<T>(acc[i] / fmaxf(l_s[r], 1e-30f));
+          acc[i] / fmaxf(l_s[r], 1e-30f);
     }
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const FlashParams& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
+// ---------------------------------------------------------------- bf16 --
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// mbarriers (PTX ISA): a phase completes when its arrivals and, for a
+// TMA load, its expected bytes are all in; waits name the phase's parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Where the row, head and batch coordinates go among a tensor map's
+// dimensions 1..3 (the host orders them by stride).
+struct Slots {
+  int row, head, batch;
+};
+
+// One TMA box (a panel of 64 rows), at column c0, into shared memory;
+// completion is counted on `bar`.  Rows past the tensor's end arrive as
+// zeros and are never read.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int row,
+                                         int head, int batch, Slots sl) {
+  const int x1 = sl.row == 1 ? row : sl.head == 1 ? head : batch;
+  const int x2 = sl.row == 2 ? row : sl.head == 2 ? head : batch;
+  const int x3 = sl.row == 3 ? row : sl.head == 3 ? head : batch;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(x1), "r"(x2), "r"(x3)
+      : "memory");
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // 2^x, ex2.approx
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+constexpr int NWG = 2;          // warpgroups per block, 64 query rows each
+constexpr int GNT = 128 * NWG;  // threads per block
+constexpr int GK = 64;          // keys per K/V tile
+constexpr int STAGES = 2;       // K/V ring depth
+
+// Q (64 rows per warpgroup), then STAGES x (K tile, V tile), in the
+// swizzled layout (1024-byte aligned); then the mbarriers: K full, V full
+// and empty per stage, then Q.
+template <int DH>
+constexpr size_t wg_smem_bytes() {
+  return 1024 + (64 * NWG + 2 * STAGES * GK) * DH * sizeof(bf16) +
+         (3 * STAGES + 1) * sizeof(uint64_t);
+}
+
+// ------------------------------------------------------------- wgmma --
+
+// Tiles live in shared memory as TMA writes them with its swizzle of RB
+// = min(2 Dh, 128) bytes: panels of RB / 2 columns, each rows x RB bytes,
+// whose 16-byte chunks are XOR-permuted within each group of 8 rows (so
+// wgmma's reads of 8 rows hit 8 distinct bank groups).  wgmma reads the
+// same pattern through its descriptor: layout type 1, 2 or 3 for a swizzle
+// of 128, 64 or 32 bytes, rows RB apart, 8-row groups 8 RB apart (sbo), and
+// for a MN-major operand the next panel lbo bytes on.
+template <int DH>
+struct Swz {
+  static constexpr int RB = DH * 2 < 128 ? DH * 2 : 128;  // row bytes
+  static constexpr int PANELS = DH * 2 / RB;
+  static constexpr uint64_t TYPE = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle TMA =
+      RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+template <int DH>
+__device__ __forceinline__ uint64_t wg_desc(const void* ptr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(ptr) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (Swz<DH>::TYPE << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Registers that an asynchronous wgmma writes are read only after its
+// wait: this empty asm ties each read to the point after the wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// a (64 x 16) * b (16 x 64), both K-major in shared memory: NAME(d, da,
+// db) sets d to it with OUT "=f" and SCALE_D 0, adds it to d with "+f"
+// and 1.  The first step has its own wrapper: with "+f" it would read the
+// last tile's scores, keeping them live across the loop (24 B spilled).
+#define WGMMA_SS_N64(NAME, OUT, SCALE_D)                                    \
+  __device__ __forceinline__ void NAME(float (&d)[32], uint64_t da,        \
+                                       uint64_t db) {                      \
+    asm volatile(                                                          \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                       \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"           \
+        "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+        "%24, %25, %26, %27, %28, %29, %30, %31"                           \
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                 \
+        : OUT(d[0]), OUT(d[1]), OUT(d[2]), OUT(d[3]),                      \
+          OUT(d[4]), OUT(d[5]), OUT(d[6]), OUT(d[7]),                      \
+          OUT(d[8]), OUT(d[9]), OUT(d[10]), OUT(d[11]),                    \
+          OUT(d[12]), OUT(d[13]), OUT(d[14]), OUT(d[15]),                  \
+          OUT(d[16]), OUT(d[17]), OUT(d[18]), OUT(d[19]),                  \
+          OUT(d[20]), OUT(d[21]), OUT(d[22]), OUT(d[23]),                  \
+          OUT(d[24]), OUT(d[25]), OUT(d[26]), OUT(d[27]),                  \
+          OUT(d[28]), OUT(d[29]), OUT(d[30]), OUT(d[31])                   \
+        : "l"(da), "l"(db), "r"(SCALE_D));                                 \
   }
+#define WGMMA_SET(x) "=f"(x)
+#define WGMMA_ADD(x) "+f"(x)
+WGMMA_SS_N64(wgmma_ss_n64_first, WGMMA_SET, 0)
+WGMMA_SS_N64(wgmma_ss_n64, WGMMA_ADD, 1)
+#undef WGMMA_SET
+#undef WGMMA_ADD
+#undef WGMMA_SS_N64
+
+// d += a (64 x 16, registers) * b (16 x N, MN-major in shared memory).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The accumulator of m64nN (PTX ISA): warp w of the warpgroup holds rows
+// 16 w + g and 16 w + g + 8; d[4 i + e] is column 8 i + 2 t + (e & 1) of
+// row g + 8 (e >> 1), the layout of mma.m16n8k16's fragments side by side;
+// A from registers takes mma.m16n8k16's A layout in each warp.
+//
+// A block holds NWG warpgroups of 64 query rows each, NWG x 64 positions
+// of one query head; each K/V tile it loads serves all of them.
+// Thread 0 also starts the TMA loads: it keeps up to STAGES tiles in
+// flight, refilling a stage once every warp has released it, and blocks
+// only when the tile it needs itself is not requested yet; so the warpgroups
+// run apart by up to STAGES - 1 tiles, and one's softmax overlaps
+// another's products.
+template <int DH>
+__global__ void __launch_bounds__(GNT, 2)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, FlashParams p,
+                   Slots sq, Slots sk, Slots sv) {
+  constexpr int CH = DH / 8;  // 16-byte chunks per row
+  constexpr int RB = Swz<DH>::RB, PANEL = 64 * RB / 2;  // elements a panel
+  constexpr uint32_t TILE = GK * DH * sizeof(bf16);
+  static_assert(DH % 16 == 0 && DH <= 128, "unsupported head size");
+
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t{1023});
+  bf16* Ks = Qs + NWG * 64 * DH;     // STAGES x GK x DH
+  bf16* Vs = Ks + STAGES * GK * DH;  // STAGES x GK x DH
+  uint64_t* fullk = reinterpret_cast<uint64_t*>(Vs + STAGES * GK * DH);
+  uint64_t* fullv = fullk + STAGES;
+  uint64_t* empty = fullv + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64 * NWG;  // heaviest first
+  const int wq0 = q0 + 64 * wg;  // this warpgroup's positions
+  const int kvh = h / (p.H / p.KV);
+  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
+
+  int n_tiles = (p.S + GK - 1) / GK;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + 64 * NWG - 1) / GK + 1);
+
+  // tile j into stage j % STAGES; K and V land on barriers of their own,
+  // so that QK^T need not wait for V
+  auto request = [&](int j) {
+    const int st = j % STAGES;
+    mbar_expect_tx(&fullk[st], TILE);
+    for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
+      tma_load(Ks + st * GK * DH + pn * PANEL, &tk, &fullk[st], pn * RB / 2,
+               j * GK, kvh, b, sk);
+    mbar_expect_tx(&fullv[st], TILE);
+    for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
+      tma_load(Vs + st * GK * DH + pn * PANEL, &tv, &fullv[st], pn * RB / 2,
+               j * GK, kvh, b, sv);
+  };
+  int next = 0;  // thread 0: the first tile not requested yet
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&fullk[st], 1);
+      mbar_init(&fullv[st], 1);
+      mbar_init(&empty[st], 4 * NWG);  // one arrival per warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qbar, NWG * 64 * DH * sizeof(bf16));
+    for (int w = 0; w < NWG; ++w)
+      for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
+        tma_load(Qs + w * 64 * DH + pn * PANEL, &tq, qbar, pn * RB / 2,
+                 q0 + 64 * w, h, b, sq);
+    for (; next < min(n_tiles, STAGES); ++next) request(next);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  const int row0 = wq0 + 16 * warp + g;  // this thread's rows: row0, +8
+  // K-major Q and K: a 16-deep step moves 32 B along the row, and to the
+  // next panel after RB / 32 steps
+  const uint64_t dq = wg_desc<DH>(Qs + wg * 64 * DH, 16, 8 * RB);
+  auto kstep = [](int kc) {  // in the descriptor's 16-byte units
+    return (kc % (RB / 32)) * 2 + (kc / (RB / 32)) * (64 * RB / 16);
+  };
+  const float scale = p.scale * LOG2E;   // scores in the log2 domain
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * GK, st = kt % STAGES;
+    if (tid == 0) {  // refill released stages, at most STAGES tiles ahead
+      for (; next < n_tiles && next < kt + STAGES; ++next) {
+        const int parity = (next / STAGES - 1) & 1;
+        if (next > kt && !mbar_test(&empty[next % STAGES], parity)) break;
+        mbar_wait(&empty[next % STAGES], parity);
+        request(next);
+      }
+    }
+    __syncwarp();  // warp 0 meets again before its aligned wgmma
+    mbar_wait(&fullk[st], (kt / STAGES) & 1);
+    if (p.causal && k0 > wq0 + 63) {  // wholly above our rows
+      if (lane == 0) mbar_arrive(&empty[st]);
+      continue;
+    }
+
+    // s = Q K^T: Dh / 16 steps of m64n64k16, both operands K-major
+    const uint64_t dk = wg_desc<DH>(Ks + st * GK * DH, 16, 8 * RB);
+    float s[32];
+    wgmma_fence();
+    wgmma_ss_n64_first(s, dq, dk);
+#pragma unroll
+    for (int kc = 1; kc < DH / 16; ++kc)
+      wgmma_ss_n64(s, dq + kstep(kc), dk + kstep(kc));
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(s);
+
+    // mask the ragged end and, on the diagonal, the future (only those
+    // tiles; the scale is applied inside the exponent below)
+    if (k0 + GK > p.S || (p.causal && k0 + GK > wq0 + 16 * warp)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (col >= p.S || (p.causal && col > row)) s[i] = NEG_INF;
+      }
+    }
+
+    // online softmax on the fragments: a row lives in one quad of lanes;
+    // m is kept scaled, in the log2 domain
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+        mx = fmaxf(mx, fmaxf(s[4 * nn + 2 * r], s[4 * nn + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * nn + 2 * r + e];
+          x = fast_exp2(fmaf(x, scale, -m_new));
+          sum += x;
+        }
+      l[r] = alpha[r] * l[r] + sum;  // this thread's share; the quad sums last
+    }
+    // rescale acc, unless no row of this warp has a new max (x 1 is exact)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int dn = 0; dn < DH / 8; ++dn) {
+        acc[4 * dn] *= alpha[0];
+        acc[4 * dn + 1] *= alpha[0];
+        acc[4 * dn + 2] *= alpha[1];
+        acc[4 * dn + 3] *= alpha[1];
+      }
+    }
+
+    // acc += P V: P rounded to bf16 in registers as the A operand, V
+    // MN-major; four m64n{Dh}k16 steps of 16 keys
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+    const uint64_t dv = wg_desc<DH>(Vs + st * GK * DH, GK * RB, 8 * RB);
+    mbar_wait(&fullv[st], (kt / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j)  // 16 keys, 16 rows of RB bytes, a step
+      wgmma_rs<DH>(acc, pa[j], dv + j * RB);
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with st
+  }
+
+  // normalise, stage the warp's 16 rows in its own rows of the Q tile
+  // (16-byte chunks XOR-swizzled by row against bank conflicts), and store
+  // them 16 bytes a lane
+  constexpr int SW = CH < 8 ? CH : 8;
+  bf16* Os = Qs + (wg * 64 + warp * 16) * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    const int rr = g + 8 * r;
+#pragma unroll
+    for (int dn = 0; dn < CH; ++dn)
+      *reinterpret_cast<uint32_t*>(Os + rr * DH + (dn ^ (rr % SW)) * 8 +
+                                   2 * t) =
+          pack_bf16(acc[4 * dn + 2 * r] * inv, acc[4 * dn + 2 * r + 1] * inv);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int rr = i / CH, c = i % CH;
+    const int row = wq0 + 16 * warp + rr;
+    if (row < p.S)
+      *reinterpret_cast<uint4*>(o + static_cast<int64_t>(row) * p.o_ss +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(Os + rr * DH + (c ^ (rr % SW)) * 8);
+  }
+}
+
+// ------------------------------------------------------------- launch --
+
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, size_t smem, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <int DH>
+cudaError_t launch_fp32(const FlashParams& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = fp32_smem_bytes<DH>();
+  static bool configured = false;
+  cudaError_t err = configure(flash_fwd_fp32<DH>, smem, configured);
+  if (err != cudaSuccess) return err;
   dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
-  flash_fwd<T, DH><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_fp32<DH><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(const FlashParams& p, int B, int DH,
-                        cudaStream_t stream) {
-  switch (DH) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    default: return cudaErrorInvalidValue;
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that the
+// library needs no link to libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
+}
+
+// A TMA map of a bf16 (batch, rows, heads, DH) view with element strides,
+// read in swizzled panels of 64 rows.  Dimensions 1..3 go in order of
+// stride; `slots` says where each landed.
+template <int DH>
+cudaError_t make_map(CUtensorMap* map, Slots* slots, const void* base,
+                     int rows, int heads, int batch, int64_t s_row,
+                     int64_t s_head, int64_t s_batch) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  struct Dim {
+    int64_t size, stride;
+    int* slot;
+  } d[3] = {{rows, s_row, &slots->row},
+            {heads, s_head, &slots->head},
+            {batch, s_batch, &slots->batch}};
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j + 1 < 3 - i; ++j)
+      if (d[j].stride > d[j + 1].stride) {
+        const Dim x = d[j];
+        d[j] = d[j + 1];
+        d[j + 1] = x;
+      }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH)};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {Swz<DH>::RB / 2}, unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = d[i].size;
+    strides[i] = d[i].stride * sizeof(bf16);
+    box[i + 1] = d[i].slot == &slots->row ? 64 : 1;
+    *d[i].slot = i + 1;
+  }
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, Swz<DH>::TMA,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DH>
+cudaError_t launch_bf16(const FlashParams& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<DH>();
+  static bool configured = false;
+  cudaError_t err = configure(flash_fwd_bf16<DH>, smem, configured);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  Slots sq, sk, sv;
+  if ((err = make_map<DH>(&tq, &sq, p.q, p.S, p.H, B, p.q_ss, p.q_sh,
+                      p.q_sb)) != cudaSuccess ||
+      (err = make_map<DH>(&tk, &sk, p.k, p.S, p.KV, B, p.k_ss, p.k_sh,
+                      p.k_sb)) != cudaSuccess ||
+      (err = make_map<DH>(&tv, &sv, p.v, p.S, p.KV, B, p.v_ss, p.v_sh,
+                      p.v_sb)) != cudaSuccess)
+    return err;
+  const int n_q = (p.S + 64 * NWG - 1) / (64 * NWG);
+  if (B > 65535 || n_q > 65535) return cudaErrorInvalidValue;
+  dim3 grid(p.H, B, n_q);
+  flash_fwd_bf16<DH><<<grid, GNT, smem, stream>>>(tq, tk, tv, p, sq, sk, sv);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch(const FlashParams& p, int dtype, int B,
+                   cudaStream_t stream) {
+  if (dtype == 0) return launch_fp32<DH>(p, B, stream);
+  if (dtype == 1) return launch_bf16<DH>(p, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -226,7 +827,27 @@ extern "C" int flash_attention_fwd(
                 q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
                 o_sh, scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_dh<float>(p, B, DH, st);
-  if (dtype == 1) return dispatch_dh<__nv_bfloat16>(p, B, DH, st);
-  return cudaErrorInvalidValue;
+  switch (DH) {
+    case 16: return launch<16>(p, dtype, B, st);
+    case 32: return launch<32>(p, dtype, B, st);
+    case 64: return launch<64>(p, dtype, B, st);
+    case 128: return launch<128>(p, dtype, B, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory one block of flash_attention_fwd takes, in
+// bytes, for dtype (0 = float32, 1 = bfloat16) and head size DH; 0 when
+// there is no such instantiation.
+extern "C" int flash_attention_smem_bytes(int dtype, int DH) {
+  auto pick = [&](auto fp32, auto bf16) {
+    return static_cast<int>(dtype == 0 ? fp32 : dtype == 1 ? bf16 : 0);
+  };
+  switch (DH) {
+    case 16: return pick(fp32_smem_bytes<16>(), wg_smem_bytes<16>());
+    case 32: return pick(fp32_smem_bytes<32>(), wg_smem_bytes<32>());
+    case 64: return pick(fp32_smem_bytes<64>(), wg_smem_bytes<64>());
+    case 128: return pick(fp32_smem_bytes<128>(), wg_smem_bytes<128>());
+    default: return 0;
+  }
 }

@@ -12,6 +12,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
@@ -25,12 +26,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _nvcc() -> str:
+def _tool(name: str = "nvcc") -> str:
+    """A program of the CUDA toolkit that builds the kernels."""
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found: set CUDA_HOME or put "
                            "nvcc on PATH to build the repro_torch kernels")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    return str(Path(CUDA_HOME) / "bin" / name)
 
 
 def library_path(name: str) -> Path:
@@ -53,7 +55,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             out = library_path(name)
             if out.exists():
                 continue
-            nvcc = nvcc or _nvcc()
+            nvcc = nvcc or _tool()
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
             jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -74,6 +76,24 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def tensor_core_counts(name: str) -> Dict[str, int]:
+    """For each entry function of the built ``csrc/<name>.cu``, by mangled
+    name: how many tensor-core instructions (``HMMA``, ``HGMMA``) its SASS
+    holds, as ``cuobjdump -sass`` prints it.  Builds the source first."""
+    build((name,))
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m[1]
+            counts[fn] = 0
+        elif fn and re.search(r"\bHG?MMA\.", line):
+            counts[fn] += 1
+    return counts
 
 
 @functools.cache

@@ -1,6 +1,9 @@
 """The torch port's CUDA and Triton kernels against their plain versions,
 on a CUDA card: the shape sweeps of ``test_kernels.py``, ragged lengths,
-llama3.1-8b widths and a cache holding NaN past the fill level; then the
+llama3.1-8b widths, a cache holding NaN past the fill level, and flash
+attention on strided views with NaN around them, with its bf16 products
+on the tensor cores (in its SASS) and, in bf16, within one ulp of its
+rounding points emulated in torch; then the
 smoke model on the card against the same weights on the CPU.  Tolerances:
 fp32 2e-5, bf16 2e-2, as ``test_kernels.py``.  The GBT-histogram kernel is
 held to its exact contract: the bits of numpy's float32 ``np.add.at``; the
@@ -20,6 +23,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gbt_hist import ops as gh_ops
 from repro_torch.kernels.gbt_hist.ref import gbt_hist_ref
@@ -62,10 +66,18 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
     torch.testing.assert_close(got, rmsnorm_ref(x, scale), **_tol(dtype))
 
 
+def _flash_want(q, k, v, causal):
+    return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal).transpose(1, 2)
+
+
 @pytest.mark.parametrize("b,h,kv,s,dh", [
     (1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
     (2, 6, 2, 64, 32), (1, 4, 2, 50, 16), (2, 32, 8, 512, 128),
-    (2, 32, 8, 1000, 128)])
+    (2, 32, 8, 1000, 128),
+    # ragged S around the kernel's 64-row tiles, at every head size
+    *[(2, 8, 2, s, dh) for s in (1, 63, 65, 127, 129, 1000)
+      for dh in (16, 32, 64, 128)]])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_kernel(cuda, b, h, kv, s, dh, causal, dtype):
@@ -74,10 +86,64 @@ def test_flash_attention_kernel(cuda, b, h, kv, s, dh, causal, dtype):
     k = _randn(gen, (b, s, kv, dh), dtype, cuda)
     v = _randn(gen, (b, s, kv, dh), dtype, cuda)
     got = fa_ops.flash_attention(q, k, v, causal=causal)
-    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), causal=causal).transpose(1, 2)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **_tol(dtype))
+    torch.testing.assert_close(got, _flash_want(q, k, v, causal),
+                               **_tol(dtype))
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each |x|, floored at 1/16 (8 significant bits)."""
+    _, exp = torch.frexp(x.float().abs().clamp(min=1 / 16))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
+@pytest.mark.parametrize("s", [300, 320])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_kernel_matches_its_emulation(cuda, s, causal):
+    """K2's bf16 output within one bf16 ulp of ``attention_bf16_emulated``
+    (its rounding points in plain torch) on the inputs and at the widths of
+    ``test_torch_kernels.py``'s comparison of that emulation with the JAX
+    flash kernel: Dh 128, GQA 4:1."""
+    gen = torch.Generator(cuda).manual_seed(8)
+    q = _randn(gen, (1, s, 8, 128), torch.bfloat16, cuda)
+    k = _randn(gen, (1, s, 2, 128), torch.bfloat16, cuda)
+    v = _randn(gen, (1, s, 2, 128), torch.bfloat16, cuda)
+    got = fa_ops.flash_attention(q, k, v, causal=causal).cpu().float()
+    want = attention_bf16_emulated(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    err = (got - want.float()).abs() / _bf16_ulp(want)
+    assert err.max() <= 1, f"{err.max():.3g} ulp"
+
+
+@pytest.mark.parametrize("s", [65, 129])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_reads_only_its_views(cuda, s, dh, causal,
+                                                     dtype):
+    """q, k, v are strided views into one buffer whose other rows, heads
+    and columns hold NaN: any read outside the views reaches the output."""
+    gen = torch.Generator(cuda).manual_seed(5)
+    buf = torch.full((2, s + 7, 14, dh + 16), float("nan"), dtype=dtype,
+                     device=cuda)
+    rows, cols = slice(3, 3 + s), slice(8, 8 + dh)
+    q, k, v = (buf[:, rows, 0:8, cols], buf[:, rows, 9:11, cols],
+               buf[:, rows, 12:14, cols])
+    for x in (q, k, v):
+        x.copy_(_randn(gen, x.shape, dtype, cuda))
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _flash_want(q, k, v, causal),
+                               **_tol(dtype))
+
+
+def test_flash_attention_bf16_kernels_use_the_tensor_cores(cuda):
+    """Every bf16 instantiation of the kernel holds HMMA or HGMMA
+    instructions in its SASS (``cuobjdump -sass`` of the built library)."""
+    from repro_torch.kernels import _build
+    counts = _build.tensor_core_counts("flash_attention")
+    bf16 = {k: n for k, n in counts.items() if "flash_fwd_bf16" in k}
+    assert len(bf16) == len(_build.HEAD_DIMS)
+    assert all(n > 0 for n in bf16.values()), bf16
 
 
 @pytest.mark.parametrize("b,h,kv,t,dh", [

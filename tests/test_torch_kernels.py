@@ -15,6 +15,7 @@ from repro.kernels.rmsnorm import ops as jrms_ops
 
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -72,6 +73,22 @@ def test_flash_attention_matches_jax(b, h, kv, s, dh, causal, dtype_name):
         _close(got, jfa_ops.flash_attention(jq, jk, jv, causal=causal,
                                             force=force, block_q=64,
                                             block_k=64), dtype_name)
+
+
+@pytest.mark.parametrize("s,force", [(320, "interpret"), (300, "ref")])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_rounding_points_match_jax(s, force, causal):
+    """K2's bf16 arithmetic, emulated step for step in torch (bf16 P into
+    P.V, fp32 scores and sums, 64-key tiles, log2 domain), stays within the
+    bf16 tolerance of the JAX flash kernel at llama head width: Dh 128,
+    GQA 4:1.  ``test_torch_gpu.py`` holds K2 itself to the emulation at
+    about one bf16 ulp."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        8, [(1, s, 8, 128), (1, s, 2, 128), (1, s, 2, 128)], "bfloat16")
+    got = attention_bf16_emulated(tq, tk, tv, causal=causal)
+    block = dict(block_q=64, block_k=64) if force == "interpret" else {}
+    _close(got, jfa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                        force=force, **block), "bfloat16")
 
 
 # ---------------------------------------------------------- decode attention --
