@@ -10,7 +10,7 @@ Phases, each printing its own lines:
    limit as ``nvidia-smi`` prints them;
 2. build: ``nvcc`` builds the CUDA kernels from ``src/repro_torch/csrc``
    (one process per source, all at once) with their register and spill
-   counts; the tensor-core gate: ``cuobjdump -sass`` of the built
+   counts (and decode attention's shared memory a block); the tensor-core gate: ``cuobjdump -sass`` of the built
    flash-attention library must show HMMA or HGMMA instructions in every
    bf16 instantiation of the kernel; Triton compiles the RMSNorm kernel at
    its first launch;
@@ -19,14 +19,21 @@ Phases, each printing its own lines:
    widths and a cache holding NaN past the fill level, fp32 within 2e-5
    and bf16 within 2e-2; flash attention also at ragged S around its
    64-row tiles for every head size, and on strided views whose
-   surroundings hold NaN; the GBT-histogram kernel at the ALA's shapes
+   surroundings hold NaN; decode attention where several splits run (B 1
+   and 8 at a 2,080-slot cache, pos at 0, around a split boundary and at
+   T - 1) also within 1e-6 (fp32) or one bf16 ulp of its split arithmetic
+   emulated in torch and bit-equal across two calls (B 8 cut into 2 and 5
+   splits, which its own plan does not do), with NaN past pos in bf16 and
+   on NaN-bordered strided views; the GBT-histogram kernel at the ALA's shapes
    and 8k x 8 within 1e-4, and bit for bit to its contract (float32
    ``np.add.at`` in row order, two launches, alone and in a batch,
    compacted and zero-weighted rows);
 4. each kernel timed with CUDA events at the main path's shapes, beside its
    bound, its plain version and one PyTorch library call computing the
-   same function; then the kernel's device ms per launch and the library
-   call's device ms per call, from one torch.profiler pass each;
+   same function; then the kernel's device ms per call (every kernel of
+   the call summed) and the library call's, from one torch.profiler pass
+   each; for decode attention also its n_split, grid and achieved GB/s,
+   and its device ms with the positions cut into 1, 2, 4 and 8 splits;
 5. llama3.1-8b at full width cut to 2 layers, on the card through the
    kernels against the CPU through the plain versions, same weights;
 6. llama3.1-8b at full width (32 layers, bf16, seeded random weights)
@@ -147,12 +154,13 @@ class Checks:
 
 def _kernel_name(symbol: str) -> str:
     """A readable name for a mangled entry function of csrc/*.cu."""
-    m = re.search(r"([a-z_]+_fwd(?:_bf16|_fp32)?)I(13__nv_bfloat16|f)?Li(\d+)E",
-                  symbol)
+    m = re.search(r"([a-z][a-z_]*(?:_bf16|_fp32)?)I(13__nv_bfloat16|f)?"
+                  r"((?:Li\d+E)+)", symbol)
     if not m:
         return "gbt_hist_kernel" if "gbt_hist_kernel" in symbol else symbol
     dtype = {"f": "fp32, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
-    return f"{m[1]}<{dtype}{m[3]}>"
+    ints = ", ".join(re.findall(r"Li(\d+)E", m[3]))
+    return f"{m[1]}<{dtype}{ints}>"
 
 
 def _ptxas_summary(log: str):
@@ -512,6 +520,109 @@ def ala_phase(smi):
     return ok and all(checks.values()), launches
 
 
+def _decode_want(q, k, v, pos):
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    b, h, dh = q.shape
+    kv = k.shape[2]
+    return decode_attention_ref(q.reshape(b, kv, h // kv, dh),
+                                k.transpose(1, 2), v.transpose(1, 2),
+                                pos).reshape(b, h, dh)
+
+
+def _split_positions(t, n_split):
+    """pos at 0; nearest t / 2, where the last split ends full (a split
+    boundary - 1), holds one row (on it) and two rows (+ 1); at t - 1."""
+    from repro_torch.kernels.decode_attention.kernel import splits_of
+
+    def last_rows(p):
+        return (p + 1) % splits_of(p, n_split)[1]
+    return (0, *(min((p for p in range(t) if last_rows(p) == r),
+                     key=lambda p: abs(p - t // 2)) for r in (0, 1, 2)),
+            t - 1)
+
+
+def _decode_split(q, k, v, pos, n_split):
+    """K3 with its positions cut into at most n_split splits."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    out = torch.empty_like(q)
+    n, rows = da_kernel.splits_of(pos, n_split)
+    da_kernel.decode_attention_bhd(q, k, v, out, pos, n, rows,
+                                   q.shape[-1] ** -0.5)
+    return out
+
+
+def decode_split_checks(gen, checks):
+    """K3 where several splits run, at llama3.1-8b's heads and a 2,080-slot
+    cache: B 1 with the wrapper's own plan, B 8 (one split in its plan) cut
+    into 2 and 5; pos at 0, around a split boundary and at T - 1: against
+    the plain version (added to ``checks``), within 1e-6 (fp32) or one
+    bf16 ulp of its arithmetic emulated in torch, bit-equal across two
+    calls; NaN past pos in bf16 and NaN around strided views.  Returns
+    {check: passed}."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.emulate import \
+        decode_attention_split_emulated
+    h, kv, t, dh = 32, 8, 2080, 128
+    sms = da_kernel.sm_count(0)
+    emulated, same, splits = [], [], set()
+    for b, cap in ((1, None), (8, 2), (8, 5)):
+        plan = (lambda p, b=b: da_kernel.split_plan(b, kv, h // kv, p,
+                                                    sms)[0])
+        for pos in _split_positions(t, cap or plan(t - 1)):
+            n_split = cap or plan(pos)
+            splits.add((b, da_kernel.splits_of(pos, n_split)[0]))
+            for dt in (FP32, BF16):
+                q = _randn(gen, (b, h, dh), dt)
+                k = _randn(gen, (b, t, kv, dh), dt)
+                v = _randn(gen, (b, t, kv, dh), dt)
+                if cap is None:
+                    got = da_ops.decode_attention(q, k, v, pos)
+                    again = da_ops.decode_attention(q, k, v, pos)
+                else:
+                    got = _decode_split(q, k, v, pos, n_split)
+                    again = _decode_split(q, k, v, pos, n_split)
+                checks.add(("splits", b, pos, n_split), got,
+                           _decode_want(q, k, v, pos), dt)
+                same.append(torch.equal(got, again))
+                want = decode_attention_split_emulated(q, k, v, pos, n_split)
+                if dt == FP32:
+                    emulated.append(bool(torch.isclose(
+                        got, want, rtol=1e-6, atol=1e-6).all()))
+                else:
+                    _, e = torch.frexp(want.float().abs().clamp(min=1 / 16))
+                    ulp = torch.ldexp(torch.ones_like(want, dtype=FP32), e - 8)
+                    emulated.append(bool(((got.float() - want.float()).abs()
+                                          <= ulp).all()))
+    # NaN past pos where several splits run, bf16
+    q = _randn(gen, (8, h, dh), BF16)
+    k = _randn(gen, (8, t, kv, dh), BF16)
+    v = _randn(gen, (8, t, kv, dh), BF16)
+    clean = _decode_split(q, k, v, 1000, 5)
+    k[:, 1001:], v[:, 1001:] = math.nan, math.nan
+    nan_past = torch.equal(_decode_split(q, k, v, 1000, 5), clean)
+    # q and the cache as strided views into buffers holding NaN around them
+    for b, tt, pos in ((2, 130, 129), (8, 600, 575), (1, 2080, 2000)):
+        for dt in (FP32, BF16):
+            qbuf = torch.full((b, 40, dh + 16), math.nan, dtype=dt,
+                              device="cuda")
+            cbuf = torch.full((b, tt + 9, 19, dh + 16), math.nan, dtype=dt,
+                              device="cuda")
+            q = qbuf[:, 3:35, 8:8 + dh]
+            k = cbuf[:, 4:4 + tt, 1:9, 8:8 + dh]
+            v = cbuf[:, 4:4 + tt, 10:18, 8:8 + dh]
+            for x in (q, k, v):
+                x.copy_(_randn(gen, x.shape, dt))
+            checks.add(("strided, NaN around", b, tt, pos),
+                       da_ops.decode_attention(q, k, v, pos),
+                       _decode_want(q, k, v, pos), dt)
+    torch.cuda.synchronize()
+    return {f"emulation within 1e-6 / 1 bf16 ulp ({len(emulated)} cases, "
+            f"(B, n_split) {sorted(splits)})": all(emulated),
+            f"bit-equal across two calls ({len(same)} cases)": all(same),
+            "NaN past pos, bf16, 5 splits": nan_past}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on a GPU",
@@ -520,8 +631,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.inference.engine import ServingEngine
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -544,9 +655,15 @@ def main() -> int:
     logs = _build.build()
     print(f"[2] nvcc built {sorted(logs) or 'nothing (already built)'} in "
           f"{time.perf_counter() - t0:.1f} s")
+    da_so = _build.load("decode_attention")
     for src, log in logs.items():
         for fn, regs, spill in _ptxas_summary(log):
-            print(f"[2]   {src}: {fn}: {regs} registers, {spill} B spilled")
+            m = re.fullmatch(r"decode_attn_split<(fp32|bf16), (\d+)>", fn)
+            smem = "" if not m else (
+                f", {da_so.decode_attention_smem_bytes(m[1] == 'bf16', int(m[2]))}"
+                f" B of dynamic shared memory a block")
+            print(f"[2]   {src}: {fn}: {regs} registers, {spill} B spilled"
+                  f"{smem}")
     # the tensor-core gate: every bf16 instantiation of K2 runs its
     # products on the tensor cores
     fa_so = _build.load("flash_attention")
@@ -629,11 +746,9 @@ def main() -> int:
                 k = _randn(gen, (b, t, kv, dh), dt)
                 v = _randn(gen, (b, t, kv, dh), dt)
                 pos = int((t - 1) * frac)
-                want = decode_attention_ref(
-                    q.reshape(b, kv, h // kv, dh), k.transpose(1, 2),
-                    v.transpose(1, 2), pos).reshape(b, h, dh)
                 da_c.add((b, h, kv, t, dh, pos),
-                         da_ops.decode_attention(q, k, v, pos), want, dt)
+                         da_ops.decode_attention(q, k, v, pos),
+                         _decode_want(q, k, v, pos), dt)
     # stale cache: entries past pos, 99 / -99 as in test_kernels.py, or NaN
     q = _randn(gen, (1, 4, 32), FP32)
     k = _randn(gen, (1, 128, 2, 32), FP32)
@@ -644,7 +759,11 @@ def main() -> int:
         k2[:, 64:], v2[:, 64:] = fill_k, fill_v
         da_c.add(("stale", fill_k), da_ops.decode_attention(q, k2, v2, 63),
                  clean, FP32)
+    da_exact = decode_split_checks(gen, da_c)
     ok3 = all([c.report() for c in (rms_c, fa_c, da_c)])
+    print(f"[3] decode_attention across its splits: "
+          + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in da_exact.items()))
+    ok3 = ok3 and all(da_exact.values())
     rng = np.random.default_rng(0)
     ok_k4, k4_err, lines = k4_checks(rng)
     print("\n".join(lines))
@@ -714,24 +833,39 @@ def main() -> int:
             return da_ops.decode_attention(q, k, v, pos)
 
         def da_plain(q, k, v):
-            return decode_attention_ref(
-                q.reshape(bb, kv, h // kv, dh), k.transpose(1, 2),
-                v.transpose(1, 2), pos).reshape(bb, h, dh)
+            return _decode_want(q, k, v, pos)
 
         def da_lib(q, k, v):
             return torch.nn.functional.scaled_dot_product_attention(
                 q[:, :, None], k[:, :pos + 1].transpose(1, 2),
                 v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
 
-        timings.append(dict(
+        # every kernel of a call
+        n_split, rows = da_kernel.split_plan(bb, kv, h // kv, pos,
+                                             da_kernel.sm_count(0))
+        tm = dict(
             name="decode_attention",
             shape=f"B{bb} T{t} pos{pos} H{h} KV{kv} Dh{dh} bf16",
             check=(da(q, k, v), da_plain(q, k, v)),
             ms=time_ms(da, sets), plain_ms=time_ms(da_plain, sets),
             library_ms=time_ms(da_lib, sets),
-            device_ms=device_ms(da, sets, "decode_fwd"),
+            device_ms=device_ms(da, sets),
             library_device_ms=device_ms(da_lib, sets),
-            bound=_bound(nbytes, 4 * bb * h * dh * (pos + 1), PEAK_BF16)))
+            bound=_bound(nbytes, 4 * bb * h * dh * (pos + 1), PEAK_BF16))
+        rate = nbytes / tm["device_ms"] / 1e6
+        # the same call cut into other numbers of splits: what the plan
+        # weighs (kernel.split_plan)
+        by_split = ", ".join(
+            f"{n} {device_ms(lambda *t, n=n: _decode_split(*t, pos, n), sets):.4f}"
+            for n in (1, 2, 4, 8))
+        print(f"[4] decode_attention B{bb} pos{pos}: n_split {n_split} of "
+              f"{rows} positions, grid ({kv}, {bb}, {n_split}) = "
+              f"{kv * bb * n_split} blocks of 256 threads in clusters of "
+              f"{n_split}; {nbytes / 1e6:.2f} MB in {tm['device_ms']:.4f} "
+              f"device ms: {rate:.0f} GB/s, "
+              f"{100 * rate / (PEAK_BYTES / 1e9):.1f}% of 3.35 TB/s; device "
+              f"ms at n_split {by_split} [{smi}]")
+        timings.append(tm)
         del sets, q, k, v
     timings += [k4_timing(rng, K4_MAIN), k4_timing(rng, K4_BIG)]
     ok4 = True
@@ -742,7 +876,7 @@ def main() -> int:
                        else _close(got, want, BF16))
         bound_ms, bound_by = tm["bound"]
         print(f"[4] {tm['name']} {tm['shape']}: kernel {tm['ms']:.4f} ms "
-              f"(device {tm['device_ms']:.4f} ms a launch), bound "
+              f"(device {tm['device_ms']:.4f} ms a call), bound "
               f"{bound_ms:.3g} ms ({bound_by}), plain {tm['plain_ms']:.4f} ms, "
               f"library {tm['library_ms']:.4f} ms (device "
               f"{tm['library_device_ms']:.4f} ms a call), max err "
@@ -839,7 +973,7 @@ def main() -> int:
             ours = "; ".join(
                 f"{k} x{sum(n for name, n, _ in top if k in name)} "
                 f"{sum(ms for name, _, ms in top if k in name):.3f} ms"
-                for k in ("rmsnorm", "flash_fwd", "decode_fwd"))
+                for k in ("rmsnorm", "flash_fwd", "decode_attn"))
             print(f"[7] {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
                   f"({100 * busy / wall:.1f}%); top kernels: {kernels}; "
                   f"the port's kernels: {ours}; top host ops (self CPU): "

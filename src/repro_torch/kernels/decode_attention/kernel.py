@@ -1,4 +1,5 @@
-"""ctypes binding of the CUDA decode-attention kernel.
+"""ctypes binding of the CUDA decode-attention kernel, and the choice of
+how many splits of the cache it runs side by side.
 
 The kernel is ``csrc/decode_attention.cu`` (its header comment says what it
 replaces and what bounds it); it is compiled at the first launch.
@@ -12,17 +13,53 @@ import torch
 
 from repro_torch.kernels import _build
 
+TILE = 64           # positions: every split is a whole number of tiles
+WARPS = 8           # warps a block (csrc NW)
+CHUNK = 8           # positions a warp takes at a time (csrc CH)
+HEADS_A_BLOCK = 8   # query heads one block takes at most (csrc GMAX)
+MAX_SPLIT = 8       # splits of one (b, kv head): one cluster (csrc MAX_SPLIT)
+
+
+def split_plan(b: int, kv: int, g: int, pos: int, sms: int):
+    """(n_split, split_rows): how the kernel cuts positions 0..pos for a
+    batch of ``b`` sequences, ``kv`` KV heads of ``g`` query heads each, on
+    a card with ``sms`` SMs.
+
+    The B * KV (* head chunks) blocks of eight warps are multiplied by
+    splits while they stay within one for every two SMs, up to MAX_SPLIT
+    and one tile a split: that many already draw what the card's memory
+    gives this access pattern, and a split costs its merge.  Each split is
+    ``split_rows`` positions, a multiple of TILE; the last holds pos, and
+    none starts past it.  The same arguments give the same plan."""
+    blocks = b * kv * -(-g // HEADS_A_BLOCK)
+    return splits_of(pos, max(1, min(MAX_SPLIT, sms // (2 * blocks))))
+
+
+def splits_of(pos: int, n_split: int):
+    """(n_split, split_rows) of positions 0..pos cut into at most
+    ``n_split`` splits of equal whole tiles, none past pos."""
+    n_tiles = pos // TILE + 1
+    per = -(-n_tiles // min(n_split, n_tiles))
+    return -(-n_tiles // per), per * TILE
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _entry():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_int64] * 10 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def decode_attention_bhd(q, k, v, out, pos: int, scale: float) -> None:
+def decode_attention_bhd(q, k, v, out, pos: int, n_split: int,
+                         split_rows: int, scale: float) -> None:
     """q/out: (B, H, Dh); k/v: (B, T, KV, Dh), checked by the caller."""
     lib, fn = _entry()
     b, h, dh = q.shape
@@ -31,5 +68,6 @@ def decode_attention_bhd(q, k, v, out, pos: int, scale: float) -> None:
                *out.stride()[:2])
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               _build.dtype_code(q, k, v, out), b, kv, h // kv, dh, pos,
-              *strides, scale, torch.cuda.current_stream(q.device).cuda_stream)
+              n_split, split_rows, *strides, scale,
+              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "decode_attention")

@@ -11,7 +11,8 @@ import operator
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.kernel import decode_attention_bhd
+from repro_torch.kernels.decode_attention.kernel import (decode_attention_bhd,
+                                                        sm_count, split_plan)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 
@@ -19,8 +20,10 @@ def decode_attention(q, k, v, pos: int, scale: float | None = None):
     """q: (B, H, Dh); k/v: (B, T, KV, Dh); pos: int — returns (B, H, Dh),
     attending to cache positions <= pos.
 
-    On CUDA tensors it launches the kernel or raises;
-    ``decode_attention.launches`` counts the launches."""
+    On CUDA tensors it launches the kernel or raises; the positions are
+    cut into ``split_plan``'s splits, which run as one cluster of blocks
+    and merge in its shared memory.  ``decode_attention.launches`` counts
+    calls."""
     pos = operator.index(pos)
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"expected q (B, H, Dh), k/v (B, T, KV, Dh); got "
@@ -47,7 +50,8 @@ def decode_attention(q, k, v, pos: int, scale: float | None = None):
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         _build.check_strided(name, x, q.device)
     if b:
-        decode_attention_bhd(q, k, v, out, pos, float(scale))
+        n_split, rows = split_plan(b, kv, g, pos, sm_count(q.device.index))
+        decode_attention_bhd(q, k, v, out, pos, n_split, rows, float(scale))
         decode_attention.launches += 1
     return out
 

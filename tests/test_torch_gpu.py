@@ -1,7 +1,9 @@
 """The torch port's CUDA and Triton kernels against their plain versions,
 on a CUDA card: the shape sweeps of ``test_kernels.py``, ragged lengths,
-llama3.1-8b widths, a cache holding NaN past the fill level, and flash
-attention on strided views with NaN around them, with its bf16 products
+llama3.1-8b widths, a cache holding NaN past the fill level, decode
+attention across its splits (bit-equal across calls, and within 1e-6 or
+one bf16 ulp of its split arithmetic emulated in torch), both attentions
+on strided views with NaN around them, flash attention with its bf16 products
 on the tensor cores (in its SASS) and, in bf16, within one ulp of its
 rounding points emulated in torch; then the
 smoke model on the card against the same weights on the CPU.  Tolerances:
@@ -21,6 +23,9 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.emulate import \
+    decode_attention_split_emulated
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
@@ -146,6 +151,14 @@ def test_flash_attention_bf16_kernels_use_the_tensor_cores(cuda):
     assert all(n > 0 for n in bf16.values()), bf16
 
 
+def _decode_want(q, k, v, pos):
+    b, h, dh = q.shape
+    kv = k.shape[2]
+    return decode_attention_ref(q.reshape(b, kv, h // kv, dh),
+                                k.transpose(1, 2), v.transpose(1, 2),
+                                pos).reshape(b, h, dh)
+
+
 @pytest.mark.parametrize("b,h,kv,t,dh", [
     (2, 8, 2, 128, 64), (1, 4, 4, 512, 128), (4, 16, 8, 256, 64),
     (3, 4, 2, 77, 16), (1, 32, 8, 576, 128), (8, 32, 8, 2080, 128),
@@ -159,24 +172,116 @@ def test_decode_attention_kernel(cuda, b, h, kv, t, dh, pos_frac, dtype):
     v = _randn(gen, (b, t, kv, dh), dtype, cuda)
     pos = int((t - 1) * pos_frac)
     got = da_ops.decode_attention(q, k, v, pos)
-    want = decode_attention_ref(q.reshape(b, kv, h // kv, dh),
-                                k.transpose(1, 2), v.transpose(1, 2), pos)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want.reshape(b, h, dh), **_tol(dtype))
+    torch.testing.assert_close(got, _decode_want(q, k, v, pos), **_tol(dtype))
 
 
-def test_decode_attention_kernel_never_reads_past_pos(cuda):
-    """NaN bits past pos must not reach the output (0 * NaN is NaN)."""
+def _split_positions(t, n_split):
+    """pos at 0; nearest t / 2, where the last split ends full (a split
+    boundary - 1), holds one row (on it) and two rows (+ 1); at t - 1."""
+    def last_rows(p):
+        return (p + 1) % da_kernel.splits_of(p, n_split)[1]
+    return (0, *(min((p for p in range(t) if last_rows(p) == r),
+                     key=lambda p: abs(p - t // 2)) for r in (0, 1, 2)),
+            t - 1)
+
+
+def _decode_split(q, k, v, pos, n_split):
+    """The kernel with its positions cut into at most n_split splits."""
+    out = torch.empty_like(q)
+    n, rows = da_kernel.splits_of(pos, n_split)
+    da_kernel.decode_attention_bhd(q, k, v, out, pos, n, rows,
+                                   q.shape[-1] ** -0.5)
+    return out
+
+
+@pytest.mark.parametrize("b,n_split", [(1, None), (8, None), (8, 2),
+                                       (8, 5)])
+@pytest.mark.parametrize("which", range(5))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_across_splits(cuda, b, n_split, which,
+                                               dtype):
+    """At llama3.1-8b's heads and a 2,080-slot cache, with the plan's
+    n_split (None) or a given one: within the tolerance of the plain
+    version, within 1e-6 (fp32) or one bf16 ulp of
+    ``decode_attention_split_emulated`` at the same splits, and bit-equal
+    across two calls."""
+    h, kv, t, dh = 32, 8, 2080, 128
+    gen = torch.Generator(cuda).manual_seed(6)
+    q = _randn(gen, (b, h, dh), dtype, cuda)
+    k = _randn(gen, (b, t, kv, dh), dtype, cuda)
+    v = _randn(gen, (b, t, kv, dh), dtype, cuda)
+    if n_split is None:  # the wrapper with its own plan
+
+        def plan(p):
+            return da_kernel.split_plan(b, kv, h // kv, p,
+                                        da_kernel.sm_count(0))[0]
+        pos = _split_positions(t, plan(t - 1))[which]
+        n_split = plan(pos)
+        got = da_ops.decode_attention(q, k, v, pos)
+        again = da_ops.decode_attention(q, k, v, pos)
+    else:
+        pos = _split_positions(t, n_split)[which]
+        got = _decode_split(q, k, v, pos, n_split)
+        again = _decode_split(q, k, v, pos, n_split)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, _decode_want(q, k, v, pos), **_tol(dtype))
+    want = decode_attention_split_emulated(q.cpu(), k.cpu(), v.cpu(), pos,
+                                           n_split)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    else:
+        err = (got.cpu().float() - want.float()).abs() / _bf16_ulp(want)
+        assert err.max() <= 1, f"{err.max():.3g} ulp"
+
+
+@pytest.mark.parametrize("b,t,pos,dtype,n_split", [
+    (2, 130, 70, torch.float32, None), (8, 2080, 1000, torch.bfloat16, 5),
+    (1, 2080, 1500, torch.float32, None),
+    (1, 2080, 1500, torch.bfloat16, None)])
+def test_decode_attention_kernel_never_reads_past_pos(cuda, b, t, pos, dtype,
+                                                      n_split):
+    """NaN bits past pos must not reach the output (0 * NaN is NaN), with
+    one split or several (the plan's, None, or n_split)."""
     gen = torch.Generator(cuda).manual_seed(3)
-    q = _randn(gen, (2, 8, 64), torch.float32, cuda)
-    k = _randn(gen, (2, 130, 2, 64), torch.float32, cuda)
-    v = _randn(gen, (2, 130, 2, 64), torch.float32, cuda)
-    want = da_ops.decode_attention(q, k, v, 70)
-    k[:, 71:] = float("nan")
-    v[:, 71:] = float("nan")
-    got = da_ops.decode_attention(q, k, v, 70)
+    kv, dh = (2, 64) if t < 1000 else (8, 128)
+    q = _randn(gen, (b, 4 * kv, dh), dtype, cuda)
+    k = _randn(gen, (b, t, kv, dh), dtype, cuda)
+    v = _randn(gen, (b, t, kv, dh), dtype, cuda)
+
+    def run():
+        if n_split is None:
+            return da_ops.decode_attention(q, k, v, pos)
+        return _decode_split(q, k, v, pos, n_split)
+    want = run()
+    k[:, pos + 1:] = float("nan")
+    v[:, pos + 1:] = float("nan")
+    got = run()
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,t,pos", [(2, 130, 129), (8, 600, 575),
+                                     (1, 2080, 2000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_reads_only_its_views(cuda, b, t, pos, dtype):
+    """q and the cache are strided views into buffers whose other rows,
+    heads and columns hold NaN: any read outside the views reaches the
+    output."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    dh = 128
+    qbuf = torch.full((b, 40, dh + 16), float("nan"), dtype=dtype,
+                      device=cuda)
+    cbuf = torch.full((b, t + 9, 19, dh + 16), float("nan"), dtype=dtype,
+                      device=cuda)
+    q = qbuf[:, 3:35, 8:8 + dh]
+    k, v = cbuf[:, 4:4 + t, 1:9, 8:8 + dh], cbuf[:, 4:4 + t, 10:18, 8:8 + dh]
+    for x in (q, k, v):
+        x.copy_(_randn(gen, x.shape, dtype, cuda))
+    got = da_ops.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _decode_want(q, k, v, pos), **_tol(dtype))
 
 
 def test_kernels_refuse_misaligned_strides(cuda):

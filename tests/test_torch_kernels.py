@@ -14,6 +14,9 @@ from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.rmsnorm import ops as jrms_ops
 
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.emulate import \
+    decode_attention_split_emulated
+from repro_torch.kernels.decode_attention.kernel import TILE, split_plan
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -109,6 +112,60 @@ def test_decode_attention_matches_jax(b, h, kv, t, dh, pos_frac, dtype_name):
         _close(got, jda_ops.decode_attention(jq, jk, jv, jnp.int32(pos),
                                              force=force, block_t=64),
                dtype_name)
+
+
+@pytest.mark.parametrize("pos,n_split", [
+    (0, 1), (0, 4),                       # one valid row
+    (255, 1), (255, 2), (255, 4),         # one, two and every tile a split
+    (127, 2), (128, 2), (129, 2),         # around the 128-row boundary
+    (63, 4), (64, 4), (65, 4),            # around a one-tile boundary
+    (200, 3),                             # a short last split
+])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_decode_attention_split_emulation_matches_jax(pos, n_split,
+                                                      dtype_name):
+    """K3's split-and-merge arithmetic (``decode_attention_split_emulated``)
+    within the kernels' tolerance of the JAX flash-decoding kernel, in
+    interpret mode with 64-position blocks and through its plain version.
+    ``test_torch_gpu.py`` holds K3 to the emulation at its own n_split."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        9, [(2, 8, 64), (2, 256, 2, 64), (2, 256, 2, 64)], dtype_name)
+    got = decode_attention_split_emulated(tq, tk, tv, pos, n_split)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    for force in ("ref", "interpret"):
+        _close(got, jda_ops.decode_attention(jq, jk, jv, jnp.int32(pos),
+                                             force=force, block_t=64),
+               dtype_name)
+
+
+@pytest.mark.parametrize("b,kv,g,pos,sms,want", [
+    (8, 8, 4, 575, 132, (1, 576)),     # the (512, 64, 8) cell's last step
+    (32, 8, 4, 255, 132, (1, 256)),    # the (128, 128, 32) cell's
+    (1, 8, 4, 2079, 132, (7, 320)),    # one sequence: a cluster of 7
+    (2, 8, 4, 575, 132, (3, 192)),
+    (1, 8, 4, 0, 132, (1, 64)),
+])
+def test_decode_attention_split_plan(b, kv, g, pos, sms, want):
+    assert split_plan(b, kv, g, pos, sms) == want
+
+
+def test_decode_attention_split_plan_covers_pos_in_whole_tiles():
+    """Every split is whole tiles, none starts past pos, the last covers
+    it; a cluster holds at most 8 splits, the splits add no block past one
+    for every two SMs, and they reach at least half of what those limits
+    allow."""
+    for b in (1, 2, 3, 8, 32, 64):
+        for g in (1, 4, 12):
+            for pos in (0, 1, 63, 64, 65, 511, 575, 1024, 2079, 8191):
+                for sms in (1, 78, 132):
+                    n, rows = split_plan(b, 8, g, pos, sms)
+                    assert rows % TILE == 0 and 1 <= n <= 8
+                    assert (n - 1) * rows <= pos < n * rows
+                    blocks = b * 8 * -(-g // 8)
+                    assert blocks * n <= max(blocks, sms // 2)
+                    allowed = min(pos // TILE + 1, 8,
+                                  max(1, sms // (2 * blocks)))
+                    assert 2 * n >= allowed
 
 
 def test_decode_attention_ignores_stale_cache():
