@@ -24,16 +24,21 @@ Phases, each printing its own lines:
    T - 1) also within 1e-6 (fp32) or one bf16 ulp of its split arithmetic
    emulated in torch and bit-equal across two calls (B 8 cut into 2 and 5
    splits, which its own plan does not do), with NaN past pos in bf16 and
-   on NaN-bordered strided views; the GBT-histogram kernel at the ALA's shapes
+   on NaN-bordered strided views; K4's histogram kernel at the ALA's shapes
    and 8k x 8 within 1e-4, and bit for bit to its contract (float32
    ``np.add.at`` in row order, two launches, alone and in a batch,
-   compacted and zero-weighted rows);
+   compacted and zero-weighted rows); K4's split step bit for bit to its
+   plain version on the card in every tensor it writes, at the ALA's
+   levels and 8k rows, every kind of ``cases.level_case`` (ties, blocked
+   splits, an empty problem, wide-exponent histograms), searching and
+   last levels;
 4. each kernel timed with CUDA events at the main path's shapes, beside its
    bound, its plain version and one PyTorch library call computing the
-   same function; then the kernel's device ms per call (every kernel of
-   the call summed) and the library call's, from one torch.profiler pass
-   each; for decode attention also its n_split, grid and achieved GB/s,
-   and its device ms with the positions cut into 1, 2, 4 and 8 splits;
+   same function (none for the split step); then the kernel's device ms
+   per call (every kernel of the call summed) and the library call's, from
+   one torch.profiler pass each; for decode attention also its n_split,
+   grid and achieved GB/s, and its device ms with the positions cut into
+   1, 2, 4 and 8 splits;
 5. llama3.1-8b at full width cut to 2 layers, on the card through the
    kernels against the CPU through the plain versions, same weights;
 6. llama3.1-8b at full width (32 layers, bf16, seeded random weights)
@@ -45,10 +50,15 @@ Phases, each printing its own lines:
 8. serving rows as ALA input: ``measure_arch`` sweeps the full-width model
    over a small grid and the port's Alg 2 database is fitted on the rows;
 9. ALA on the card on ``inhouse`` with the quickstart settings (serial SA,
-   then 4 chains), its stage times beside the same flow on the CPU; the
-   GBT-histogram launches must equal the tree levels grown; the card is
-   held to the CPU run: medAPE, the CPU's SA subsets evaluated again, and
-   Alg 7+8 trained on the CPU's SA log (tolerances in ``ALA_TOL``);
+   then 4 chains), its stage times beside the same flow on the CPU and
+   their ratios; every tree level grown on the card (``grow_forests``),
+   one launch of each K4 kernel a level and none by the host loop; the
+   card is held to the CPU run: medAPE, the CPU's SA subsets evaluated
+   again, and Alg 7+8 trained on the CPU's SA log (tolerances in
+   ``ALA_TOL``), Alg 3's and Alg 7's trees equal to the host loop's over
+   K4's plain histograms; a traced SA evaluation and Alg 7 fit with their
+   device-to-host copies and synchronisations, the fit held to exactly
+   1,000 launches of each K4 kernel and at most 10 copies back;
 10. the kernel table as one JSON line, then ``{"ok": true, ...}`` last.
 
 It needs a CUDA card and the repository around it, and exits non-zero
@@ -71,10 +81,11 @@ sys.path.insert(0, str(REPO / "src"))
 
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 on the
-# CUDA cores, HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 and
+# fp64 on the CUDA cores, HBM3 bandwidth.
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
 L2_BYTES = 50e6
 ARCH = "llama3.1-8b"
@@ -93,6 +104,15 @@ K4_SHAPES = (K4_MAIN, (3, 48, 7, 1, 64), (3, 48, 7, 4, 64), (12, 48, 7, 8, 64),
              (15, 48, 7, 16, 64), (1, 32, 24, 16, 4), (1, 125, 24, 8, 4),
              K4_BIG)
 K4_TOL = 1e-4
+# K4's split step timed at the Alg 3 fit's widest searching level: 8 nodes
+# of 3 problems, 48 rows x 7 features x 64 bins (depth 3 of 4)
+K4_SPLIT = (3, 48, 7, 8, 64)
+# the split step's checks: (L, n, f, nodes, bins) of Alg 3's and Alg 7's
+# levels and the 8,192-row problem, every kind of ``cases.level_case``
+K4_SPLIT_CHECKS = ((3, 48, 7, 8, 64), (15, 48, 7, 16, 64), (1, 125, 24, 8, 4),
+                   (1, 32, 24, 16, 4), (1, 8192, 8, 1, 64))
+GROW_STATE = ("pred", "grad", "node", "level", "feature", "threshold",
+              "left", "right", "value", "n_nodes")
 # the quickstart's SA settings (examples/quickstart.py)
 SA_ITERS, SA_CHAINS = 30, 4
 SA_GBT = dict(n_estimators=40, learning_rate=0.2, max_depth=4)
@@ -157,7 +177,8 @@ def _kernel_name(symbol: str) -> str:
     m = re.search(r"([a-z][a-z_]*(?:_bf16|_fp32)?)I(13__nv_bfloat16|f)?"
                   r"((?:Li\d+E)+)", symbol)
     if not m:
-        return "gbt_hist_kernel" if "gbt_hist_kernel" in symbol else symbol
+        return next((k for k in ("gbt_hist_kernel", "gbt_split_kernel")
+                     if k in symbol), symbol)
     dtype = {"f": "fp32, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
     ints = ", ".join(re.findall(r"Li(\d+)E", m[3]))
     return f"{m[1]}<{dtype}{ints}>"
@@ -195,26 +216,29 @@ def time_ms(fn, arg_sets, iters=60):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, arg_sets, kernel=None, calls=20):
+def device_ms(fn, arg_sets, kernel=None, calls=20, passes=3):
     """Device ms per launch of the CUDA kernels whose names hold ``kernel``,
     or, with ``kernel=None``, device ms of all the work of one call, from
-    one torch.profiler pass over ``calls`` calls of ``fn`` after a warm-up;
-    raises if the trace holds no such kernel."""
+    one torch.profiler pass over ``calls`` calls of ``fn`` after a warm-up.
+    A pass whose trace holds no such kernel (the tracer now and then
+    returns one without device events) is made again, up to ``passes`` in
+    all; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(calls):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and (kernel is None or kernel in e.name)]
-    if not events:
-        raise RuntimeError(f"the trace shows no device work of {kernel}")
-    n = calls if kernel is None else len(events)
-    return sum(e.device_time_total for e in events) / 1e3 / n
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and (kernel is None or kernel in e.name)]
+        if events:
+            n = calls if kernel is None else len(events)
+            return sum(e.device_time_total for e in events) / 1e3 / n
+    raise RuntimeError(f"{passes} traces show no device work of {kernel}")
 
 
 def _n_sets(nbytes):
@@ -223,28 +247,41 @@ def _n_sets(nbytes):
 
 def _device_profile(fn):
     """Traces one call of ``fn`` with torch.profiler: wall ms, ms of device
-    work, (kernel name, launches, ms) sorted by time, and the same for the
-    host's operators by their own CPU time."""
+    work, (kernel name, launches, ms) sorted by time, the same for the
+    host's operators by their own CPU time, and counts of device-to-host
+    copies and of stream and device synchronisations (the tracer's own
+    closing one included).  A trace with no device event is taken again,
+    up to three in all; ``counts["calls"]`` says how many calls of ``fn``
+    ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for calls in range(1, 4):   # again if the tracer saw no device work
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.device_time_total)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.device_time_total)
+        if by_name:
+            break
     busy = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(((k, n, us / 1e3) for k, (n, us) in by_name.items()),
                  key=lambda row: -row[2])
+    averages = prof.key_averages()
     host = sorted(((e.key, e.count, e.self_cpu_time_total / 1e3)
-                   for e in prof.key_averages()), key=lambda row: -row[2])
-    return wall * 1e3, busy, top, host
+                   for e in averages), key=lambda row: -row[2])
+    by_key = {e.key: e.count for e in averages}
+    counts = dict(calls=calls,
+                  dtoh=sum(n for k, (n, _) in by_name.items() if "DtoH" in k),
+                  stream_syncs=by_key.get("cudaStreamSynchronize", 0),
+                  device_syncs=by_key.get("cudaDeviceSynchronize", 0))
+    return wall * 1e3, busy, top, host, counts
 
 
 def _bound(nbytes, ops, peak):
@@ -363,6 +400,102 @@ def k4_timing(rng, shape):
         bound=_bound(nbytes, 2 * L * n * f, PEAK_FP32))
 
 
+def _bits(t):
+    """``t``'s bits as integers: equal exactly when the values are the same
+    bit for bit (-0.0 and 0.0 differ, as NaNs of one payload agree)."""
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32, 8: torch.int64}[
+                                    t.element_size()])
+
+
+def split_checks():
+    """K4's split step against its plain version on the card, bit for bit
+    in every tensor of the state: each ``K4_SPLIT_CHECKS`` shape, every
+    kind of level (wide-exponent histograms included), at a searching level
+    and at a tree's last.  Returns (ok, report line)."""
+    from repro_torch.kernels.gbt_hist import ops as gh_ops
+    from repro_torch.kernels.gbt_hist.cases import (KINDS, level_case,
+                                                    level_state)
+    from repro_torch.kernels.gbt_hist.ref import gbt_split_ref
+    same, splits = [], 0
+    for L, n, f, width, nb in K4_SPLIT_CHECKS:
+        depth = width.bit_length() - 1
+        for kind in KINDS:
+            c = level_case(len(same), L, width, f, nb, kind, n=n)
+            hist = torch.from_numpy(c["hist"]).cuda()
+            for max_depth in (depth + 1, depth):
+                card, plain = (level_state(c, 2, max_depth, "cuda")
+                               for _ in range(2))
+                gh_ops.split_level(hist, card, 1, depth, max_depth, 1.0,
+                                   c["mcw"], 0.1)
+                gbt_split_ref(hist, plain, 1, depth, max_depth, 1.0,
+                              c["mcw"], 0.1)
+                same.append(all(torch.equal(_bits(getattr(card, k)),
+                                            _bits(getattr(plain, k)))
+                                for k in GROW_STATE))
+                splits += int((card.feature >= 0).sum())
+    ok = all(same)
+    return ok, (f"[3] gbt_split: {len(same)} levels ({len(K4_SPLIT_CHECKS)} "
+                f"shapes x {len(KINDS)} kinds, searching and last; {splits} "
+                f"splits) bit for bit to the plain version on the card: "
+                f"{sum(same)} of {len(same)}: {'ok' if ok else 'FAIL'}")
+
+
+def split_timing():
+    """K4's split step at ``K4_SPLIT``, timed beside its plain version, each
+    call on the same level: the rows, predictions and level it moves are
+    restored before every call, outside the CUDA events around it.  Bound:
+    the histograms read once, each valid node's tree entries (5 x 4 B) and
+    each row's next node (4 B) written, over the memory rate; or its fp64
+    operations (13 a candidate split) over the fp64 peak.  No PyTorch call
+    computes the step: no library time."""
+    from repro_torch.kernels.gbt_hist import ops as gh_ops
+    from repro_torch.kernels.gbt_hist.cases import level_case, level_state
+    from repro_torch.kernels.gbt_hist.ref import gbt_split_ref
+    L, n, f, width, nb = K4_SPLIT
+    depth = width.bit_length() - 1
+    c = level_case(0, L, width, f, nb, n=n)
+    c["n_valid"][:] = width
+    hist = torch.from_numpy(c["hist"]).cuda()
+    start = level_state(c, 1, depth + 1, "cuda")
+    moved = ("pred", "node", "level")
+
+    def run(fn, s, iters=60):
+        pairs = []
+        for i in range(iters + 5):
+            for k in moved:
+                getattr(s, k).copy_(getattr(start, k))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            fn(hist, s, 0, depth, depth + 1, 1.0, 1.0, 0.1)
+            ev[1].record()
+            pairs += [ev] if i >= 5 else []
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+    card, plain = (level_state(c, 1, depth + 1, "cuda") for _ in range(2))
+    gh_ops.split_level(hist, card, 0, depth, depth + 1, 1.0, 1.0, 0.1)
+    gbt_split_ref(hist, plain, 0, depth, depth + 1, 1.0, 1.0, 0.1)
+    got = torch.cat([getattr(card, k).double().reshape(-1) for k in GROW_STATE])
+    want = torch.cat([getattr(plain, k).double().reshape(-1)
+                      for k in GROW_STATE])
+    nbytes = hist.numel() * 4 + L * width * 20 + L * n * 4
+    s = level_state(c, 1, depth + 1, "cuda")
+
+    def kernel():
+        for k in moved:
+            getattr(s, k).copy_(getattr(start, k))
+        gh_ops.split_level(hist, s, 0, depth, depth + 1, 1.0, 1.0, 0.1)
+
+    return dict(
+        name="gbt_split", shape=f"L{L} n{n} f{f} nodes{width} bins{nb}",
+        check=(got, want), ms=run(gh_ops.split_level, s),
+        plain_ms=run(gbt_split_ref, level_state(c, 1, depth + 1, "cuda")),
+        library_ms=None, device_ms=device_ms(kernel, [()], "gbt_split_kernel"),
+        library_device_ms=None,
+        bound=_bound(nbytes, 13 * L * width * f * nb, PEAK_FP64))
+
+
 def _trees(model):
     return [np.concatenate([getattr(t, k) for t in m.trees_])
             for m in getattr(model, "models", [model])
@@ -404,7 +537,8 @@ def run_ala(device, train, test):
 
 def ala_phase(smi):
     """Phase 9: ALA on the card, the same flow on the CPU, and the card
-    held to the CPU run.  Returns (ok, K4 launches on the ALA path)."""
+    held to the CPU run.  Returns (ok, {kernel: launches on the ALA path})
+    for K4's two kernels."""
     from repro_torch.bench.datasets import make_inhouse_dataset, train_test_split
     from repro_torch.core import database, fit, gbt
     from repro_torch.core.annealing import _BatchedEvaluator
@@ -414,26 +548,35 @@ def ala_phase(smi):
     from repro_torch.kernels.gbt_hist import ops as gh_ops
     train, test = (d.workload for d in
                    train_test_split(make_inhouse_dataset(), 0.3))
-    gh_ops.build_node_histograms.launches = 0
-    gbt._joint_histograms.levels = 0
+    counters = (gh_ops.build_node_histograms, gh_ops.split_level)
+    for fn in counters:
+        fn.launches = 0
+    gbt.grow_forests.levels = gbt._joint_histograms.levels = 0
     t0 = time.perf_counter()
     card, card_log, got, card_t = run_ala(None, train, test)
     card_wall = time.perf_counter() - t0
-    launches = gh_ops.build_node_histograms.launches
-    levels = gbt._joint_histograms.levels
+    launches = {"gbt_hist": counters[0].launches,
+                "gbt_split": counters[1].launches}
+    levels, host_levels = gbt.grow_forests.levels, gbt._joint_histograms.levels
     t0 = time.perf_counter()
     _, cpu_log, want, cpu_t = run_ala("cpu", train, test)
     cpu_wall = time.perf_counter() - t0
-    ok = launches == levels > 0
+    # every level on the card: one histogram launch and one split launch;
+    # no level by the host loop
+    ok = (launches["gbt_hist"] == launches["gbt_split"] == levels > 0
+          and host_levels == 0)
     for name, walls, t in (("card", card_wall, card_t),
                            ("CPU", cpu_wall, cpu_t)):
         stages = ", ".join(f"{k} {v:.3f}" for k, v in t.items())
         print(f"[9] ALA on the {name}: {walls:.1f} s in all; {stages} "
               f"[{smi}]")
+    print("[9] card / CPU: " + ", ".join(
+        f"{k} {card_t[k] / cpu_t[k]:.2f}x" for k in card_t if cpu_t.get(k)))
     for k in got:
         print(f"[9]   {k}: card {got[k]!r}, CPU {want[k]!r}")
-    print(f"[9] gbt_hist launches {launches}, tree levels grown {levels}: "
-          f"{'ok' if ok else 'FAIL'}")
+    print(f"[9] launches gbt_hist {launches['gbt_hist']}, gbt_split "
+          f"{launches['gbt_split']}, tree levels grown on the card {levels}, "
+          f"by the host loop {host_levels}: {'ok' if ok else 'FAIL'}")
     checks = {"held-out medAPE": abs(got["medape"] - want["medape"])
               <= ALA_TOL["medape"]}
     # the CPU run's serial-SA subsets evaluated again on the card
@@ -501,22 +644,39 @@ def ala_phase(smi):
     print(f"[9] checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
                                       for k, v in checks.items()))
     # where the card's ALA time goes: one SA evaluation of 4 candidates
-    # and one Alg 7 fit, traced after a warm-up evaluation
+    # and one Alg 7 fit, traced after a warm-up evaluation.  Alg 7 grows
+    # 200 trees of depth 4: 1,000 levels, each one launch of each K4
+    # kernel, and at most 10 copies back to the host in all
     ev_card = _BatchedEvaluator(train, test, dict(SA_GBT), device="cuda")
     ev_card.evaluate_batch(cpu_log.subsets[:4])
+    alg7_levels = 200 * 5
     for what, fn in (
             ("evaluate_batch of 4 SA subsets",
              lambda: ev_card.evaluate_batch(cpu_log.subsets[4:8])),
             ("Alg 7 fit on the CPU's SA log",
              lambda: train_error_predictor(cpu_log, device="cuda"))):
-        wall, busy, top, host = _device_profile(fn)
+        before = [c.launches for c in counters]
+        wall, busy, top, host, counts = _device_profile(fn)
+        grew = [(c.launches - b) / counts["calls"]
+                for c, b in zip(counters, before)]
         kernels = "; ".join(f"{name[:40]} x{n} {ms:.3f} ms"
-                            for name, n, ms in top[:5])
+                            for name, n, ms in top[:6])
         ops = "; ".join(f"{name[:32]} x{n} {ms:.3f} ms"
-                        for name, n, ms in host[:6])
+                        for name, n, ms in host[:8])
+        k4 = {k: sum(n for name, n, _ in top if k in name)
+              for k in ("gbt_hist_kernel", "gbt_split_kernel")}
         print(f"[9] traced {what}: wall {wall:.2f} ms, device busy "
-              f"{busy:.2f} ms ({100 * busy / wall:.1f}%); top kernels: "
+              f"{busy:.2f} ms ({100 * busy / wall:.1f}%); K4 launches a call "
+              f"{grew[0]:g} + {grew[1]:g} (in the trace {k4}); "
+              f"{counts['dtoh']} device-to-host copies, "
+              f"{counts['stream_syncs']} cudaStreamSynchronize, "
+              f"{counts['device_syncs']} cudaDeviceSynchronize; top kernels: "
               f"{kernels}; top host ops (self CPU): {ops} [{smi}]")
+        if what.startswith("Alg 7"):
+            checks["traced Alg 7 fit: 1,000 levels, <= 10 copies back"] = (
+                grew == [alg7_levels, alg7_levels] and counts["dtoh"] <= 10)
+    print(f"[9] checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                      for k, v in checks.items()))
     return ok and all(checks.values()), launches
 
 
@@ -767,7 +927,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     ok_k4, k4_err, lines = k4_checks(rng)
     print("\n".join(lines))
-    ok3 = ok3 and ok_k4
+    ok_split, line = split_checks()
+    print(line)
+    ok3 = ok3 and ok_k4 and ok_split
 
     # -- 4. timing at the main path's shapes --------------------------------
     cfg = get_config(ARCH)
@@ -867,22 +1029,25 @@ def main() -> int:
               f"ms at n_split {by_split} [{smi}]")
         timings.append(tm)
         del sets, q, k, v
-    timings += [k4_timing(rng, K4_MAIN), k4_timing(rng, K4_BIG)]
+    timings += [k4_timing(rng, K4_MAIN), k4_timing(rng, K4_BIG),
+                split_timing()]
     ok4 = True
     for tm in timings:
         got, want = tm.pop("check")
         tm["err"] = _err(got, want)
-        ok4 = ok4 and (tm["err"] <= K4_TOL if tm["name"] == "gbt_hist"
-                       else _close(got, want, BF16))
+        ok4 = ok4 and {"gbt_hist": tm["err"] <= K4_TOL,
+                       "gbt_split": tm["err"] == 0.0}.get(
+                           tm["name"], _close(got, want, BF16))
         bound_ms, bound_by = tm["bound"]
+        library = ("none" if tm["library_ms"] is None else
+                   f"{tm['library_ms']:.4f} ms (device "
+                   f"{tm['library_device_ms']:.4f} ms a call)")
         print(f"[4] {tm['name']} {tm['shape']}: kernel {tm['ms']:.4f} ms "
               f"(device {tm['device_ms']:.4f} ms a call), bound "
               f"{bound_ms:.3g} ms ({bound_by}), plain {tm['plain_ms']:.4f} ms, "
-              f"library {tm['library_ms']:.4f} ms (device "
-              f"{tm['library_device_ms']:.4f} ms a call), max err "
-              f"{tm['err']:.3g} [{smi}]")
+              f"library {library}, max err {tm['err']:.3g} [{smi}]")
         # the JSON line reports each kernel at the first cell's prefill
-        # shape, and gbt_hist at the ALA predictor's first shape
+        # shape, and K4's at the ALA predictor's first shape
         table.setdefault(tm["name"], tm)
     table["gbt_hist"]["err"] = max(table["gbt_hist"]["err"], k4_err)
     torch.cuda.empty_cache()
@@ -965,7 +1130,7 @@ def main() -> int:
         for what, fn in ((f"prefill B{bb} S{ii}",
                           lambda: model.prefill(prompts, ii + oo)),
                          (f"8 decode steps B{bb} from pos {ii}", decode8)):
-            wall, busy, top, host = _device_profile(fn)
+            wall, busy, top, host, _ = _device_profile(fn)
             kernels = "; ".join(f"{name[:48]} x{n} {ms:.3f} ms"
                                 for name, n, ms in top[:6])
             ops = "; ".join(f"{name[:40]} x{n} {ms:.3f} ms"
@@ -1011,7 +1176,7 @@ def main() -> int:
     # -- 9. ALA on the card against the CPU ---------------------------------
     t0 = time.perf_counter()
     ok9, k4_launches = ala_phase(smi)
-    launches["gbt_hist"] = k4_launches
+    launches.update(k4_launches)
     print(f"[9] ALA phase: {'ok' if ok9 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
@@ -1023,7 +1188,9 @@ def main() -> int:
                "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:67"),
                "gbt_hist": ("cuda", "src/repro_torch/csrc/gbt_hist.cu",
-                            "src/repro/kernels/gbt_hist/kernel.py:49")}
+                            "src/repro/kernels/gbt_hist/kernel.py:49"),
+               "gbt_split": ("cuda", "src/repro_torch/csrc/gbt_hist.cu",
+                             "src/repro/core/gbt.py:608")}
     kernels = []
     for name, (route, source, replaces) in sources.items():
         tm = table[name]

@@ -4,12 +4,16 @@ Second-order boosting in the XGBoost sense [Chen & Guestrin, KDD'16]:
 quantile-binned features, per-node gradient/hessian histograms, gain
   0.5 * (GL^2/(HL+l) + GR^2/(HR+l) - G^2/(H+l))
 shrinkage, row subsampling, and hessian-weighted leaves.  Level-wise
-growth, fully vectorized over nodes.  Every tree level's histograms come
-from one call of ``_joint_histograms``: on the GPU one launch of the CUDA
-kernel K4 (``kernels/gbt_hist``) for every node of every problem, on the
-CPU the reference's float64 host scatter-add.  ``use_kernel`` chooses
-(``None``: the kernel exactly when the model's ``device`` is CUDA); the
-split search stays float64 numpy on the histograms the device returns.
+growth, fully vectorized over nodes.  ``use_kernel`` chooses K4
+(``kernels/gbt_hist``; ``None``: K4 exactly when the model's ``device`` is
+CUDA).  On the GPU, ``grow_forests`` grows every tree on the card: each
+level is one launch of K4's histogram kernel for every node of every
+problem and one of its split step (split search, leaf values, tree
+entries, rows to their children, the boosting update), with no copy back
+to the host until the fit ends.  Elsewhere the host loop builds each
+level's histograms with ``_joint_histograms`` (K4's plain fp32 version, or
+the reference's float64 scatter-add) and searches the splits in float64
+numpy; with K4 it grows the same trees bit for bit as ``grow_forests``.
 
 Two training paths produce identical trees:
 
@@ -204,9 +208,22 @@ class GBTRegressor:
         rng = np.random.default_rng(self.seed)
         bins = self._fit_bins(X)
         self.base_ = float(y.mean()) if len(y) else 0.0
+        self._packed = None
+        if (self.subsample >= 1.0 and self.colsample >= 1.0
+                and _resident_on(self.use_kernel, self.device, self.n_bins,
+                                 self.max_depth)):
+            F, TH, LE, RI, V, NN = grow_forests(
+                bins[None], y[None], np.ones((1, len(y))),
+                np.array([self.base_]), self.n_estimators,
+                self.learning_rate, self.max_depth, self.n_bins,
+                self.min_child_weight, self.reg_lambda, self.device)
+            self.trees_ = [_Tree(feature=F[0, t, :nn], threshold=TH[0, t, :nn],
+                                 left=LE[0, t, :nn], right=RI[0, t, :nn],
+                                 value=V[0, t, :nn])
+                           for t, nn in enumerate(NN[0])]
+            return self
         pred = np.full_like(y, self.base_)
         self.trees_ = []
-        self._packed = None
         for t in range(self.n_estimators):
             grad = pred - y
             hess = np.ones_like(y)
@@ -324,6 +341,15 @@ class RandomForestRegressor:
 def _kernel_on(use_kernel: Optional[bool], device: torch.device) -> bool:
     """``use_kernel=None`` means K4 exactly when the device is CUDA."""
     return device.type == "cuda" if use_kernel is None else bool(use_kernel)
+
+
+def _resident_on(use_kernel: Optional[bool], device: torch.device,
+                 n_bins: int, max_depth: int) -> bool:
+    """Whether a fit grows its trees on the card (``grow_forests``): K4 on
+    a CUDA device, within the split step's limits."""
+    return (_kernel_on(use_kernel, device) and device.type == "cuda"
+            and n_bins <= gh_ops.SPLIT_MAX_BINS
+            and max_depth <= gh_ops.SPLIT_MAX_DEPTH)
 
 
 def kernel_histograms(bins, grad, hess, node_id, n_nodes, n_bins,
@@ -509,6 +535,44 @@ def _joint_histograms(bins, grad, hess, node, nlvl, n_bins, use_kernel,
 _joint_histograms.levels = 0
 
 
+def grow_forests(bins, y, w, base, n_estimators: int, learning_rate: float,
+                 max_depth: int, n_bins: int, min_child_weight: float,
+                 reg_lambda: float, device):
+    """Grows T = ``n_estimators`` trees for each of L problems on
+    ``device``: bins (L, n, f) int32 bin ids, y (L, n) targets, w (L, n)
+    row weights (a row is in the fit where w > 0), base (L,) starting
+    predictions.  Returns numpy (F, TH, LE, RI, V, NN): (L, T, N) feature,
+    threshold, left, right and value arrays and (L, T) node counts, N =
+    2**(max_depth + 1) - 1, as ``_grow_forests_host`` with K4 grows them,
+    bit for bit.
+
+    The inputs go to the device once; then every tree level is one
+    ``build_node_histograms`` and one ``split_level`` over all L problems,
+    at the level's full width 2**depth (nodes past a problem's valid ones
+    hold no rows), with no copy back and no synchronisation until the
+    trees come back at the end.  ``grow_forests.levels`` counts the levels
+    grown."""
+    device = resolve_device(device)
+    L, n, f = bins.shape
+    s = gh_ops.GrowState.start(bins, y, w, base, n_estimators, max_depth,
+                               device)
+    hists = [torch.empty((L, 2 ** d, f, n_bins, 2), dtype=torch.float32,
+                         device=device) for d in range(max_depth + 1)]
+    for t in range(n_estimators):
+        for depth, hist in enumerate(hists):
+            gh_ops.build_node_histograms(s.bins, s.grad, s.hess, s.node,
+                                         2 ** depth, n_bins, out=hist)
+            gh_ops.split_level(hist, s, t, depth, max_depth, reg_lambda,
+                               min_child_weight, learning_rate)
+            grow_forests.levels += 1
+    trees = torch.stack([s.feature, s.threshold, s.left, s.right])
+    return (*trees.cpu().numpy(), s.value.cpu().numpy(),
+            s.n_nodes.cpu().numpy())
+
+
+grow_forests.levels = 0
+
+
 def fit_packed_forest(X, Y, W=None, n_estimators: int = 100,
                       learning_rate: float = 0.1, max_depth: int = 4,
                       n_bins: int = 64, min_child_weight: float = 1.0,
@@ -535,7 +599,6 @@ def fit_packed_forest(X, Y, W=None, n_estimators: int = 100,
     W = np.ones((C, n), np.float64) if W is None \
         else np.asarray(W, np.float64)
     L = C * O
-    lam = reg_lambda
 
     # -- per-candidate quantile binning (masked rows excluded) --------------
     qs = np.linspace(0, 1, n_bins + 1)[1:-1]
@@ -553,8 +616,32 @@ def fit_packed_forest(X, Y, W=None, n_estimators: int = 100,
     # a padded weighted sum can differ in the last ulp and flip a split
     base = np.array([yT[l, Wl[l] > 0].mean() if (Wl[l] > 0).any() else 0.0
                      for l in range(L)])
-    pred = np.broadcast_to(base[:, None], (L, n)).copy()
+    args = (bins, yT, Wl, base, n_estimators, learning_rate, max_depth,
+            n_bins, min_child_weight, reg_lambda)
+    if _resident_on(use_kernel, device, n_bins, max_depth):
+        F, TH, LE, RI, V, NN = grow_forests(*args, device)
+    else:
+        F, TH, LE, RI, V, NN = _grow_forests_host(*args, use_kernel, device)
 
+    def grid(a):
+        return a.reshape(C, O, *a.shape[1:])
+
+    return PackedForest(feature=grid(F), threshold=grid(TH), left=grid(LE),
+                        right=grid(RI), value=grid(V), base=grid(base),
+                        bin_edges=edges, n_nodes=grid(NN),
+                        learning_rate=learning_rate, max_depth=max_depth,
+                        device=str(device))
+
+
+def _grow_forests_host(bins, yT, Wl, base, n_estimators, learning_rate,
+                       max_depth, n_bins, min_child_weight, reg_lambda,
+                       use_kernel, device):
+    """``grow_forests``' trees grown by a host loop: each level's
+    histograms from ``_joint_histograms``, the split search, the leaf
+    values and the rows' next nodes in float64 numpy."""
+    L, n, f = bins.shape
+    lam = reg_lambda
+    pred = np.broadcast_to(base[:, None], (L, n)).copy()
     N = 2 ** (max_depth + 1) - 1
     F = np.full((L, n_estimators, N), -1, np.int32)
     TH = np.zeros((L, n_estimators, N), np.int32)
@@ -653,14 +740,7 @@ def fit_packed_forest(X, Y, W=None, n_estimators: int = 100,
         # lr * float32 leaves, matching GBTRegressor.fit's dtype exactly
         pred = pred + learning_rate * np.take_along_axis(V_t, nd, axis=1)
 
-    def grid(a):
-        return a.reshape(C, O, *a.shape[1:])
-
-    return PackedForest(feature=grid(F), threshold=grid(TH), left=grid(LE),
-                        right=grid(RI), value=grid(V), base=grid(base),
-                        bin_edges=edges, n_nodes=grid(NN),
-                        learning_rate=learning_rate, max_depth=max_depth,
-                        device=str(device))
+    return F, TH, LE, RI, V, NN
 
 
 class LinearRegression:

@@ -10,8 +10,9 @@ smoke model on the card against the same weights on the CPU.  Tolerances:
 fp32 2e-5, bf16 2e-2, as ``test_kernels.py``.  The GBT-histogram kernel is
 held to its exact contract: the bits of numpy's float32 ``np.add.at``; the
 ALA's device paths (LM solve, forest traversal, bank distances) to their
-CPU contracts, and a small ALA run's histogram launches to its tree
-levels.  Every test needs a card and
+CPU contracts; K4's split step to its plain version bit for bit, the
+forests it grows on the card to the host loop's over K4's plain
+histograms, and a small ALA run's launches to its tree levels.  Every test needs a card and
 skips without one; this file imports no JAX, so it runs where only torch
 is installed:
 
@@ -31,6 +32,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gbt_hist import ops as gh_ops
+from repro_torch.kernels.gbt_hist.cases import KINDS, level_case, level_state
 from repro_torch.kernels.gbt_hist.ref import gbt_hist_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -377,6 +379,66 @@ def test_gbt_hist_kernel_batch_and_zero_weight_invariant(cuda):
     assert torch.equal(zeroed, compact)
 
 
+GROW_STATE = ("pred", "grad", "node", "level", "feature", "threshold",
+              "left", "right", "value", "n_nodes")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("width", [1, 4, 16])
+@pytest.mark.parametrize("n_bins", [4, 16, 64, 128])
+def test_split_step_kernel_is_its_plain_version_bit_for_bit(cuda, n_bins,
+                                                             width, kind):
+    c = level_case(n_bins + width, 3, width, 7, n_bins, kind, n=300)
+    depth = width.bit_length() - 1
+    for max_depth in (depth, depth + 1):         # the last level, a search
+        card = level_state(c, 2, max_depth, cuda)
+        plain = level_state(c, 2, max_depth, "cpu")
+        launches = gh_ops.split_level.launches
+        for s, dev in ((card, cuda), (plain, "cpu")):
+            gh_ops.split_level(torch.from_numpy(c["hist"]).to(dev), s, 1,
+                               depth, max_depth, 1.0, c["mcw"], 0.1)
+        torch.cuda.synchronize()
+        assert gh_ops.split_level.launches == launches + 1
+        for k in GROW_STATE:
+            got, want = getattr(card, k).cpu(), getattr(plain, k)
+            assert got.numpy().tobytes() == want.numpy().tobytes(), k
+
+
+@pytest.mark.parametrize("max_depth", [1, 2, 3, 4])
+@pytest.mark.parametrize("C,O,n,f,n_bins", [(1, 1, 125, 24, 4),
+                                            (5, 3, 48, 7, 64)])
+def test_forests_grown_on_the_card_are_the_host_loops(cuda, C, O, n, f,
+                                                      n_bins, max_depth):
+    """L 1 and L 15: the resident loop on the card against the host loop
+    over K4's plain histograms on the CPU, bit for bit; two launches a
+    level and nothing else per level."""
+    from repro_torch.core import gbt
+    rng = np.random.default_rng(max_depth)
+    X = rng.uniform(0, 10, (C, n, f))
+    Y = np.stack([X[..., 0] * 3 + X[..., 1], np.sin(X[..., 2]),
+                  X[..., 1] ** 2][:O], -1)
+    W = (rng.random((C, n)) < 0.7).astype(np.float64)
+    kw = dict(n_estimators=6, max_depth=max_depth, n_bins=n_bins)
+    counts = (gh_ops.build_node_histograms.launches,
+              gh_ops.split_level.launches, gbt.grow_forests.levels)
+    got = gbt.fit_packed_forest(X, Y, W, **kw)
+    want = gbt.fit_packed_forest(X, Y, W, use_kernel=True, device="cpu", **kw)
+    levels = 6 * (max_depth + 1)
+    assert (gh_ops.build_node_histograms.launches - counts[0],
+            gh_ops.split_level.launches - counts[1],
+            gbt.grow_forests.levels - counts[2]) == (levels,) * 3
+    for k in ("feature", "threshold", "left", "right", "value", "n_nodes",
+              "base"):
+        assert np.array_equal(getattr(got, k), getattr(want, k)), k
+    if C == 1:
+        card = gbt.GBTRegressor(**kw).fit(X[0], Y[0, :, 0])
+        host = gbt.GBTRegressor(use_kernel=True, device="cpu", **kw).fit(
+            X[0], Y[0, :, 0])
+        for a, b in zip(card.trees_, host.trees_):
+            for k in ("feature", "threshold", "left", "right", "value"):
+                assert np.array_equal(getattr(a, k), getattr(b, k)), k
+
+
 def test_lm_solve_is_batch_invariant_on_the_card(cuda):
     from repro_torch.core import fit
     rng = np.random.default_rng(3)
@@ -428,11 +490,15 @@ def test_small_ala_launches_one_histogram_kernel_per_tree_level(cuda):
     ala.cfg.gbt_kw = dict(n_estimators=10, learning_rate=0.2, max_depth=4)
     ala.cfg.sa = SAConfig(n_iters=2, gbt_kw=dict(n_estimators=5))
     launches = gh_ops.build_node_histograms.launches
+    splits = gh_ops.split_level.launches
     levels = gbt._joint_histograms.levels
+    grown_before = gbt.grow_forests.levels
     ala.fit(*train.workload)
     ala.explore(test.workload, n_chains=2)
     ala.fit_error(n_estimators=10)
     err, conf = ala.estimate(test.workload)
     assert np.isfinite(err) and 0.0 < conf <= 1.0 + 1e-6
-    grown = gbt._joint_histograms.levels - levels
+    assert gbt._joint_histograms.levels == levels   # no host loop
+    grown = gbt.grow_forests.levels - grown_before
     assert gh_ops.build_node_histograms.launches - launches == grown > 0
+    assert gh_ops.split_level.launches - splits == grown
