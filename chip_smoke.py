@@ -9,15 +9,19 @@ Phases, each printing its own lines:
 1. device: the card's name and, on a line of its own, its name and power
    limit as ``nvidia-smi`` prints them;
 2. build: ``nvcc`` builds the CUDA kernels from ``src/repro_torch/csrc``
-   (one process per source, all at once) with their register and spill
-   counts (and decode attention's shared memory a block); the tensor-core gate: ``cuobjdump -sass`` of the built
-   flash-attention library must show HMMA or HGMMA instructions in every
-   bf16 instantiation of the kernel; Triton compiles the RMSNorm kernel at
-   its first launch;
+   (one process per source, all at once: RMSNorm, flash attention, decode
+   attention, the GBT kernels) with their register and spill counts (and
+   decode attention's shared memory a block); the tensor-core gate:
+   ``cuobjdump -sass`` of the built flash-attention library must show HMMA
+   or HGMMA instructions in every bf16 instantiation of the kernel;
 3. each kernel against its plain PyTorch version on the card: the shape
    sweeps of ``tests/test_kernels.py``, ragged lengths, the llama3.1-8b
    widths and a cache holding NaN past the fill level, fp32 within 2e-5
-   and bf16 within 2e-2; flash attention also at ragged S around its
+   and bf16 within 2e-2; RMSNorm plain and fused with the residual add,
+   whose sum must be ``x + r`` bit for bit; decode attention captured in a
+   CUDA graph and replayed with the position changed in device memory, at
+   positions that cross split boundaries, bit-equal at each to the eager
+   call; flash attention also at ragged S around its
    64-row tiles for every head size, and on strided views whose
    surroundings hold NaN; decode attention where several splits run (B 1
    and 8 at a 2,080-slot cache, pos at 0, around a split boundary and at
@@ -34,21 +38,33 @@ Phases, each printing its own lines:
    last levels;
 4. each kernel timed with CUDA events at the main path's shapes, beside its
    bound, its plain version and one PyTorch library call computing the
-   same function (none for the split step); then the kernel's device ms
+   same function (none for the split step; for the fused RMSNorm the two
+   calls ``x + r`` and ``F.rms_norm``), and for RMSNorm the device time of
+   a ``copy_`` that moves the same bytes; then the kernel's device ms
    per call (every kernel of the call summed) and the library call's, from
    one torch.profiler pass each; for decode attention also its n_split,
    grid and achieved GB/s, and its device ms with the positions cut into
    1, 2, 4 and 8 splits;
 5. llama3.1-8b at full width cut to 2 layers, on the card through the
-   kernels against the CPU through the plain versions, same weights;
+   kernels against the CPU through the plain versions, same weights; then
+   its decode step replayed as a CUDA graph (``DecodeGraph``) against 16
+   eager greedy steps, logits and tokens bit for bit;
 6. llama3.1-8b at full width (32 layers, bf16, seeded random weights)
-   served by ``ServingEngine.measure_throughput``; the kernels' launch
-   counters are zeroed before and must show the expected launches after;
-7. one traced prefill and 8 decode steps per cell (torch.profiler): the
-   device's busy share, the kernels that take its time and the port's own
-   kernels' share;
+   served by ``ServingEngine.measure_throughput``, which replays a CUDA
+   graph a decode step; the kernels' launch counters and the engine's
+   captures and replays are zeroed before and must show the expected
+   counts after (kernels count at capture and at the eager warm-up step
+   before it, not at replays); then, at the same cells, the eager loop of
+   ``decode_step`` calls, with its tokens equal to the engine's;
+7. one traced prefill, 8 eager decode steps and 8 graph replays per cell
+   (torch.profiler): the device's busy share, the kernels that take its
+   time and the port's own kernels' share; the captured step must hold 65
+   RMSNorm and 32 decode-attention kernel nodes, listed from the graph
+   through the CUDA driver, and a trace of 8 more replays must show both
+   kernels by name, never more of them than 8 steps hold;
 8. serving rows as ALA input: ``measure_arch`` sweeps the full-width model
-   over a small grid and the port's Alg 2 database is fitted on the rows;
+   over a small grid (through the graphed engine) and the port's Alg 2
+   database is fitted on the rows;
 9. ALA on the card on ``inhouse`` with the quickstart settings (serial SA,
    then 4 chains), its stage times beside the same flow on the CPU and
    their ratios; every tree level grown on the card (``grow_forests``),
@@ -174,14 +190,18 @@ class Checks:
 
 def _kernel_name(symbol: str) -> str:
     """A readable name for a mangled entry function of csrc/*.cu."""
-    m = re.search(r"([a-z][a-z_]*(?:_bf16|_fp32)?)I(13__nv_bfloat16|f)?"
-                  r"((?:Li\d+E)+)", symbol)
+    m = re.search(r"([a-z][a-z_]*(?:_bf16|_fp32)?)I"
+                  r"((?:13__nv_bfloat16|f|S\d*_)*)((?:L[ib]\d+E)+)", symbol)
     if not m:
         return next((k for k in ("gbt_hist_kernel", "gbt_split_kernel")
                      if k in symbol), symbol)
-    dtype = {"f": "fp32, ", "13__nv_bfloat16": "bf16, "}.get(m[2], "")
-    ints = ", ".join(re.findall(r"Li(\d+)E", m[3]))
-    return f"{m[1]}<{dtype}{ints}>"
+    types = []
+    for t in re.findall(r"13__nv_bfloat16|f|S\d*_", m[2]):
+        # S<n>_ repeats an earlier type: here always the one before
+        types.append(types[-1] if t.startswith("S") else
+                     {"f": "fp32", "13__nv_bfloat16": "bf16"}[t])
+    ints = re.findall(r"L[ib](\d+)E", m[3])
+    return f"{m[1]}<{', '.join(types + ints)}>"
 
 
 def _ptxas_summary(log: str):
@@ -241,6 +261,16 @@ def device_ms(fn, arg_sets, kernel=None, calls=20, passes=3):
     raise RuntimeError(f"{passes} traces show no device work of {kernel}")
 
 
+def _copy_device_ms(nbytes, n_sets):
+    """Device ms of one ``copy_`` that reads and writes ``nbytes`` in all,
+    on ``n_sets`` buffers in turn: what the card's memory gives a kernel
+    that only moves those bytes (a yardstick for bytes-bound kernels)."""
+    n = nbytes // 4  # bf16 elements read (and as many written)
+    sets = [(torch.empty(n, dtype=BF16, device="cuda"),
+             torch.ones(n, dtype=BF16, device="cuda")) for _ in range(n_sets)]
+    return device_ms(lambda dst, src: dst.copy_(src), sets)
+
+
 def _n_sets(nbytes):
     return max(2, math.ceil(3 * L2_BYTES / nbytes))
 
@@ -282,6 +312,30 @@ def _device_profile(fn):
                   stream_syncs=by_key.get("cudaStreamSynchronize", 0),
                   device_syncs=by_key.get("cudaDeviceSynchronize", 0))
     return wall * 1e3, busy, top, host, counts
+
+
+def _kernel_launches(fn, keys):
+    """For each of ``keys``: the device kernels whose names hold it, in a
+    trace of ``fn()`` by torch.profiler with device activity alone.  The
+    tracer runs one call of ``fn`` as its warm-up first and keeps the
+    second: a trace that starts with the call loses the first few kernels'
+    records (seen in phase [7] of this script)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    names = []
+
+    def keep(prof):
+        names.extend(e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=keep,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [sum(k in n for n in names) for k in keys]
 
 
 def _bound(nbytes, ops, peak):
@@ -702,13 +756,56 @@ def _split_positions(t, n_split):
 
 
 def _decode_split(q, k, v, pos, n_split):
-    """K3 with its positions cut into at most n_split splits."""
+    """K3 with its positions cut into at most n_split splits (a grid of
+    n_split capped at the cache's tiles); pos an int or a device tensor."""
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     out = torch.empty_like(q)
-    n, rows = da_kernel.splits_of(pos, n_split)
-    da_kernel.decode_attention_bhd(q, k, v, out, pos, n, rows,
-                                   q.shape[-1] ** -0.5)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor([pos], device=q.device)
+    da_kernel.decode_attention_bhd(
+        q, k, v, out, pos, min(n_split, -(-k.shape[1] // da_kernel.TILE)),
+        q.shape[-1] ** -0.5)
     return out
+
+
+def decode_graph_checks(gen):
+    """K3 captured once in a CUDA graph and replayed with the position
+    changed in device memory, at positions that cross split boundaries
+    (B 1 with the wrapper's own plan, up to 7 splits; B 8 in a grid of 5),
+    bit-equal at each to the eager call at that int position.  Returns
+    {check: passed}."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    h, kv, t, dh = 32, 8, 2080, 128
+    same, live = [], set()
+    for b, n_split in ((1, None), (8, 5)):
+        for dt in (FP32, BF16):
+            q = _randn(gen, (b, h, dh), dt)
+            k = _randn(gen, (b, t, kv, dh), dt)
+            v = _randn(gen, (b, t, kv, dh), dt)
+            pos_t = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+            def call(pos):
+                if n_split is None:
+                    return da_ops.decode_attention(q, k, v, pos)
+                return _decode_split(q, k, v, pos, n_split)
+            call(pos_t)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = call(pos_t)
+            plan = n_split or da_kernel.split_count(
+                b, kv, h // kv, da_kernel.sm_count(0))
+            for pos in (0, 63, 64, 300, 319, 320, 700, 1000, 1500, 2079):
+                pos_t.fill_(pos)
+                graph.replay()
+                same.append(torch.equal(out, call(pos)))
+                live.add((b, da_kernel.splits_of(pos, plan)[0]))
+            del graph
+    torch.cuda.synchronize()
+    return {f"one captured launch replayed at 10 positions, bit-equal to "
+            f"eager ({len(same)} cases, (B, live splits) {sorted(live)})":
+            all(same) and len(live) >= 6}
 
 
 def decode_split_checks(gen, checks):
@@ -783,20 +880,46 @@ def decode_split_checks(gen, checks):
             "NaN past pos, bf16, 5 splits": nan_past}
 
 
+def eager_generate(model, prompts, oo):
+    """The decode loop as eager ``decode_step`` calls, greedy, timed as
+    ``ServingEngine.generate`` times its graph replays: the yardstick of
+    phase [6].  Returns thpt, prefill_s, decode_s and the tokens."""
+    from repro_torch.inference.sampling import sample
+    b, ii = prompts.shape
+    vocab = model.cfg.vocab_size
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, ii + oo)
+    tok = sample(logits, vocab_size=vocab)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    toks = [tok]
+    for _ in range(oo - 1):
+        logits, cache = model.decode_step(cache, tok)
+        tok = sample(logits, vocab_size=vocab)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(thpt=b * oo / (t2 - t0), prefill_s=t1 - t0,
+                decode_s=t2 - t1,
+                tokens=torch.cat(toks, 1).cpu().numpy().astype(np.int32))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on a GPU",
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.inference.engine import ServingEngine
+    from repro_torch.inference.engine import DecodeGraph, ServingEngine
+    from repro_torch.inference.sampling import sample
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
     from repro_torch.models.transformer import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -839,22 +962,25 @@ def main() -> int:
               f"shared memory a block")
     print(f"[2] tensor-core gate (HMMA/HGMMA in every bf16 flash_attention "
           f"kernel): {'ok' if ok2 else 'FAIL'}")
-    t0 = time.perf_counter()
-    rms_ops.rmsnorm(torch.ones((1, 64), device="cuda"),
-                    torch.ones(64, device="cuda"))
-    torch.cuda.synchronize()
-    print(f"[2] triton compiled rmsnorm in {time.perf_counter() - t0:.1f} s")
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator("cuda").manual_seed(0)
-    rms_c = Checks("rmsnorm")
+    rms_c, add_c, sums = Checks("rmsnorm"), Checks("add_rmsnorm"), []
+    # the sweep of test_kernels.py, the main path's rows at d 4096, and a
+    # row that is not whole 16-byte vectors; scale fp32 and bf16
     for shape in ((8, 64), (3, 5, 128), (1, 256), (17, 96), (8, 4096),
-                  (4096, 4096)):
+                  (32, 4096), (4096, 4096), (2, 33)):
         for dt in (FP32, BF16):
-            x = _randn(gen, shape, dt)
-            scale = _randn(gen, shape[-1:], FP32)
-            rms_c.add(shape, rms_ops.rmsnorm(x, scale), rmsnorm_ref(x, scale),
-                      dt)
+            for sdt in (FP32, BF16):
+                x, r = _randn(gen, shape, dt), _randn(gen, shape, dt)
+                scale = _randn(gen, shape[-1:], sdt)
+                rms_c.add(shape, rms_ops.rmsnorm(x, scale),
+                          rmsnorm_ref(x, scale), dt)
+                (s_got, y_got), (s_want, y_want) = (
+                    rms_ops.add_rmsnorm(x, r, scale),
+                    add_rmsnorm_ref(x, r, scale))
+                add_c.add(shape, y_got, y_want, dt)
+                sums.append(torch.equal(_bits(s_got), _bits(s_want)))
     fa_c = Checks("flash_attention")
 
     def flash_want(q, k, v, causal):
@@ -920,10 +1046,13 @@ def main() -> int:
         da_c.add(("stale", fill_k), da_ops.decode_attention(q, k2, v2, 63),
                  clean, FP32)
     da_exact = decode_split_checks(gen, da_c)
-    ok3 = all([c.report() for c in (rms_c, fa_c, da_c)])
+    da_exact.update(decode_graph_checks(gen))
+    ok3 = all([c.report() for c in (rms_c, add_c, fa_c, da_c)])
+    print(f"[3] add_rmsnorm: s bit for bit x + r in {sum(sums)} of "
+          f"{len(sums)} cases: {'ok' if all(sums) else 'FAIL'}")
     print(f"[3] decode_attention across its splits: "
           + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in da_exact.items()))
-    ok3 = ok3 and all(da_exact.values())
+    ok3 = ok3 and all(da_exact.values()) and all(sums)
     rng = np.random.default_rng(0)
     ok_k4, k4_err, lines = k4_checks(rng)
     print("\n".join(lines))
@@ -935,27 +1064,53 @@ def main() -> int:
     cfg = get_config(ARCH)
     h, kv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
     table, timings = {}, []
+    # K1, plain and fused, over the prefill's rows (both cells: 4,096) and
+    # one decode step's rows (8 and 32); scale fp32 as the model holds it
+    rms_rows = sorted({r for ii, oo, bb in CELLS for r in (bb * ii, bb)},
+                      reverse=True)
+    scale = torch.ones(d, device="cuda")
+    wscale = scale.to(BF16)
+
+    def rms_lib(t, *_):
+        return torch.nn.functional.rms_norm(t, (d,), wscale, 1e-5)
+
+    def add_rms_lib(t, r, _s):  # two calls: the add, then the norm
+        return torch.nn.functional.rms_norm(t + r, (d,), wscale, 1e-5)
+
+    for rows in rms_rows:
+        nbytes = 2 * rows * d * 2 + d * 4
+        sets = [(_randn(gen, (rows, d), BF16), scale)
+                for _ in range(_n_sets(nbytes))]
+        x = sets[0][0]
+        timings.append(dict(
+            name="rmsnorm", shape=f"{rows}x{d} bf16",
+            check=(rms_ops.rmsnorm(x, scale), rmsnorm_ref(x, scale)),
+            ms=time_ms(rms_ops.rmsnorm, sets),
+            plain_ms=time_ms(rmsnorm_ref, sets),
+            library_ms=time_ms(rms_lib, sets),
+            device_ms=device_ms(rms_ops.rmsnorm, sets, "rmsnorm"),
+            library_device_ms=device_ms(rms_lib, sets),
+            library_call="F.rms_norm",
+            copy_device_ms=_copy_device_ms(nbytes, len(sets)),
+            bound=_bound(nbytes, 4 * rows * d, PEAK_FP32)))
+        nbytes = 4 * rows * d * 2 + d * 4
+        sets = [(_randn(gen, (rows, d), BF16), _randn(gen, (rows, d), BF16),
+                 scale) for _ in range(_n_sets(nbytes))]
+        x, r, _ = sets[0]
+        timings.append(dict(
+            name="add_rmsnorm", shape=f"{rows}x{d} bf16",
+            check=(rms_ops.add_rmsnorm(x, r, scale)[1],
+                   add_rmsnorm_ref(x, r, scale)[1]),
+            ms=time_ms(rms_ops.add_rmsnorm, sets),
+            plain_ms=time_ms(add_rmsnorm_ref, sets),
+            library_ms=None, two_call_ms=time_ms(add_rms_lib, sets),
+            device_ms=device_ms(rms_ops.add_rmsnorm, sets, "rmsnorm"),
+            library_device_ms=device_ms(add_rms_lib, sets),
+            library_call="x + r, then F.rms_norm (two calls)",
+            copy_device_ms=_copy_device_ms(nbytes, len(sets)),
+            bound=_bound(nbytes, 5 * rows * d, PEAK_FP32)))
+        del sets
     for ii, oo, bb in CELLS:
-        # rmsnorm over the prefill's rows and one decode step's rows
-        for rows in (bb * ii, bb):
-            x = _randn(gen, (rows, d), BF16)
-            scale = torch.ones(d, device="cuda")
-            nbytes = 2 * rows * d * 2 + d * 4
-            sets = [(_randn(gen, (rows, d), BF16), scale)
-                    for _ in range(_n_sets(nbytes))]
-            wscale = scale.to(BF16)
-            timings.append(dict(
-                name="rmsnorm", shape=f"{rows}x{d} bf16",
-                check=(rms_ops.rmsnorm(x, scale), rmsnorm_ref(x, scale)),
-                ms=time_ms(rms_ops.rmsnorm, sets),
-                plain_ms=time_ms(rmsnorm_ref, sets),
-                library_ms=time_ms(lambda t, _s: torch.nn.functional.rms_norm(
-                    t, (d,), wscale, 1e-5), sets),
-                device_ms=device_ms(rms_ops.rmsnorm, sets, "rmsnorm"),
-                library_device_ms=device_ms(
-                    lambda t, _s: torch.nn.functional.rms_norm(
-                        t, (d,), wscale, 1e-5), sets),
-                bound=_bound(nbytes, 4 * rows * d, PEAK_FP32)))
         # flash attention over the prompt, causal
         shp_q, shp_kv = (bb, ii, h, dh), (bb, ii, kv, dh)
         nbytes = 2 * bb * ii * (2 * h + 2 * kv) * dh
@@ -1039,20 +1194,25 @@ def main() -> int:
                        "gbt_split": tm["err"] == 0.0}.get(
                            tm["name"], _close(got, want, BF16))
         bound_ms, bound_by = tm["bound"]
-        library = ("none" if tm["library_ms"] is None else
-                   f"{tm['library_ms']:.4f} ms (device "
+        lib_ms = tm["library_ms"] if tm["library_ms"] is not None \
+            else tm.get("two_call_ms")
+        library = ("none" if lib_ms is None else
+                   f"{tm.get('library_call', '')} {lib_ms:.4f} ms (device "
                    f"{tm['library_device_ms']:.4f} ms a call)")
+        copy = ("" if "copy_device_ms" not in tm else
+                f", copy_ of the same bytes {tm['copy_device_ms']:.4f} "
+                f"device ms")
         print(f"[4] {tm['name']} {tm['shape']}: kernel {tm['ms']:.4f} ms "
               f"(device {tm['device_ms']:.4f} ms a call), bound "
               f"{bound_ms:.3g} ms ({bound_by}), plain {tm['plain_ms']:.4f} ms, "
-              f"library {library}, max err {tm['err']:.3g} [{smi}]")
+              f"library {library}{copy}, max err {tm['err']:.3g} [{smi}]")
         # the JSON line reports each kernel at the first cell's prefill
         # shape, and K4's at the ALA predictor's first shape
         table.setdefault(tm["name"], tm)
     table["gbt_hist"]["err"] = max(table["gbt_hist"]["err"], k4_err)
     torch.cuda.empty_cache()
 
-    # -- 5. 2-layer llama width, card against CPU -------------------------
+    # -- 5. 2-layer llama width, card against CPU; graphed against eager ---
     t0 = time.perf_counter()
     cfg2 = cfg.scaled(n_layers=2)
     card = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
@@ -1073,7 +1233,30 @@ def main() -> int:
           f"max err prefill {errs[0]:.3g}, decode "
           f"{', '.join(f'{e:.3g}' for e in errs[1:])} (bf16 tol 2e-2): "
           f"{'ok' if ok5 else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
-    del card, cpu, gcache, ccache
+    # the same model's decode step replayed as a CUDA graph against 16
+    # eager greedy steps from the same prompt: logits and tokens bit for bit
+    graph = DecodeGraph(card, 2, 81)
+    prompt = toks.cuda()
+    logits, ecache = card.prefill(prompt, 81)
+    tok = sample(logits, vocab_size=cfg.vocab_size)
+    eager = []
+    for _ in range(16):
+        logits, ecache = card.decode_step(ecache, tok)
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+        eager.append((logits.clone(), tok))
+    logits, _ = card.prefill(prompt, cache=graph.cache)
+    graph.start(sample(logits, vocab_size=cfg.vocab_size))
+    same = []
+    for logits, tok in eager:
+        graph.replay()
+        same.append(torch.equal(graph.logits, logits)
+                    and torch.equal(graph.tok, tok))
+    ok5g = all(same) and int(graph.cache.pos_t) == 64 + 16
+    print(f"[5] 2-layer model, 16 graph replays against 16 eager steps: "
+          f"logits and tokens bit-equal at {sum(same)} of {len(same)} "
+          f"steps: {'ok' if ok5g else 'FAIL'}")
+    ok5 = ok5 and ok5g
+    del card, cpu, gcache, ccache, graph, ecache
     torch.cuda.empty_cache()
 
     # -- 6. full width ------------------------------------------------------
@@ -1091,58 +1274,121 @@ def main() -> int:
     ok6 = (tuple(logits.shape) == (2, 1, cfg.padded_vocab)
            and bool(torch.isfinite(logits).all()))
     engine = ServingEngine(model)
-    counters = (rms_ops.rmsnorm, fa_ops.flash_attention,
+    counters = (rms_ops.rmsnorm, rms_ops.add_rmsnorm, fa_ops.flash_attention,
                 da_ops.decode_attention)
-    for fn in counters:
-        fn.launches = 0
+    launches = {fn.__name__: 0 for fn in counters}
+    replays = 0
     n_layers = cfg.n_layers
     for ii, oo, bb in CELLS:
-        before = [fn.launches for fn in counters]
+        # the main path: the graphed engine, counters zeroed just before
+        for fn in counters:
+            fn.launches = 0
+        engine.captures = engine.replays = 0
         rows = engine.measure_throughput(ii, oo, bb, reps=REPS)
-        grew = [fn.launches - b for fn, b in zip(counters, before)]
-        n_gen = 1 + REPS  # one warm-up generate, then the measured ones
-        expect = [(2 * n_layers + 1) * n_gen * oo, n_layers * n_gen,
-                  n_layers * n_gen * (oo - 1)]
-        ok6 = ok6 and grew == expect and all(
+        prompts = np.random.default_rng(7).integers(
+            0, cfg.vocab_size, (bb, ii), dtype=np.int32)
+        tokens = engine.generate(prompts, oo).tokens
+        grew = [fn.launches for fn in counters]
+        for fn in counters:
+            launches[fn.__name__] += fn.launches
+        replays += engine.replays
+        # prefills; steps run eagerly (one warm-up before each capture);
+        # steps captured, which count once however often they replay
+        pre, cap = 1 + REPS + 1, engine.captures
+        expect = [pre + 2 * cap, 2 * n_layers * (pre + 2 * cap),
+                  n_layers * pre, n_layers * 2 * cap]
+        counts_ok = (grew == expect and cap == 1
+                     and engine.replays == pre * (oo - 1))
+        # the eager loop at the same cell, after the graphed runs
+        eager = [eager_generate(model, np.random.default_rng(r).integers(
+            0, cfg.vocab_size, (bb, ii), dtype=np.int32), oo)
+            for r in range(1 + REPS)][1:]
+        same = np.array_equal(eager_generate(model, prompts, oo)["tokens"],
+                              tokens)
+        ok6 = ok6 and counts_ok and same and all(
             r["thpt"] > 0 and r["prefill_s"] > 0 and r["decode_s"] > 0
-            for r in rows)
-        for r in rows:
-            print(f"[6] ii={ii} oo={oo} bb={bb}: thpt {r['thpt']:.1f} tok/s, "
-                  f"prefill {r['prefill_s']:.4f} s, decode "
-                  f"{r['decode_s']:.4f} s, peak memory "
-                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
-                  f"[{smi}]")
-        print(f"[6] launches rmsnorm/flash/decode: {grew}, expected {expect}")
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"[6] main path launches: {launches}: {'ok' if ok6 else 'FAIL'}")
+            for r in rows + eager)
+        for what, rs in (("graphed", rows), ("eager", eager)):
+            for r in rs:
+                print(f"[6] {what} ii={ii} oo={oo} bb={bb}: thpt "
+                      f"{r['thpt']:.1f} tok/s, prefill {r['prefill_s']:.4f} "
+                      f"s, decode {r['decode_s']:.4f} s "
+                      f"({1e3 * r['decode_s'] / (oo - 1):.2f} ms a step), "
+                      f"peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                      f"[{smi}]")
+        print(f"[6] launches rmsnorm/add_rmsnorm/flash/decode: {grew}, "
+              f"expected {expect} ({pre} prefills, {cap} capture(s), each "
+              f"after one eager warm-up step); replays {engine.replays}, "
+              f"expected {pre * (oo - 1)}; graphed tokens equal the eager "
+              f"loop's: {same}: {'ok' if counts_ok and same else 'FAIL'}")
+    print(f"[6] main path launches: {launches}, decode steps replayed "
+          f"{replays}: {'ok' if ok6 else 'FAIL'}")
 
-    # -- 7. where the time goes: one traced prefill and 8 decode steps per
-    # cell (the tracer adds host time, so busy shares read low) -----------
+    # -- 7. where the time goes: one traced prefill, 8 eager decode steps
+    # and 8 graph replays per cell (the tracer adds host time, so busy
+    # shares read low) -----------------------------------------------------
+    ok7 = True
     for ii, oo, bb in CELLS:
         prompts = torch.randint(0, cfg.vocab_size, (bb, ii), device="cuda",
                                 generator=torch.Generator("cuda").manual_seed(3))
+        graph = engine.decode_graph(bb, ii + oo)
         _, cache = model.prefill(prompts, ii + oo)
+        model.prefill(prompts, cache=graph.cache)
+        graph.start(prompts[:, -1:])
 
         def decode8(cache=cache, tok=prompts[:, -1:]):
             for _ in range(8):
                 _, cache = model.decode_step(cache, tok)
 
+        def replay8(graph=graph):
+            for _ in range(8):
+                graph.replay()
+
         for what, fn in ((f"prefill B{bb} S{ii}",
                           lambda: model.prefill(prompts, ii + oo)),
-                         (f"8 decode steps B{bb} from pos {ii}", decode8)):
+                         (f"8 eager decode steps B{bb} from pos {ii}",
+                          decode8),
+                         (f"8 graph replays B{bb} from pos {ii}", replay8)):
             wall, busy, top, host, _ = _device_profile(fn)
             kernels = "; ".join(f"{name[:48]} x{n} {ms:.3f} ms"
                                 for name, n, ms in top[:6])
             ops = "; ".join(f"{name[:40]} x{n} {ms:.3f} ms"
                             for name, n, ms in host[:6])
-            ours = "; ".join(
-                f"{k} x{sum(n for name, n, _ in top if k in name)} "
-                f"{sum(ms for name, _, ms in top if k in name):.3f} ms"
-                for k in ("rmsnorm", "flash_fwd", "decode_attn"))
-            print(f"[7] {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-                  f"({100 * busy / wall:.1f}%); top kernels: {kernels}; "
-                  f"the port's kernels: {ours}; top host ops (self CPU): "
-                  f"{ops} [{smi}]")
+            ours = {k: (sum(n for name, n, _ in top if k in name),
+                        sum(ms for name, _, ms in top if k in name))
+                    for k in ("rmsnorm", "flash_fwd", "decode_attn")}
+            print(f"[7] {what}: wall {wall:.2f} ms, device busy {busy:.2f} "
+                  f"ms ({100 * busy / wall:.1f}%); top kernels: {kernels}; "
+                  f"the port's kernels: "
+                  + "; ".join(f"{k} x{n} {ms:.3f} ms"
+                              for k, (n, ms) in ours.items())
+                  + f"; top host ops (self CPU): {ops} [{smi}]")
+            if what.startswith("8 graph"):
+                # the kernels of a replayed step, listed from the captured
+                # graph itself; and those the tracer recorded in 8 more
+                # replays, which may fall short of them (the tracer drops
+                # a kernel record now and then, in eager traces too) but
+                # never exceed them
+                names = graph.kernel_names()
+                keys = ("rmsnorm", "decode_attn")
+                per_step = tuple(sum(k in n for n in names) for k in keys)
+                want = (2 * n_layers + 1, n_layers)
+                traced = _kernel_launches(replay8, keys)
+                seen = all(0 < t <= 8 * w for t, w in zip(traced, want))
+                ok7 = ok7 and per_step == want and seen
+                print(f"[7] the same trace counts rmsnorm "
+                      f"{ours['rmsnorm'][0]} and decode attention "
+                      f"{ours['decode_attn'][0]} kernels in 8 replays")
+                print(f"[7] kernels a replayed step, from the graph's "
+                      f"{len(names)} kernel nodes: rmsnorm {per_step[0]}, "
+                      f"decode attention {per_step[1]} (expected "
+                      f"{want[0]}, {want[1]}): "
+                      f"{'ok' if per_step == want else 'FAIL'}; traced in "
+                      f"8 more replays by name: rmsnorm {traced[0]} of "
+                      f"{8 * want[0]}, decode attention {traced[1]} of "
+                      f"{8 * want[1]}: {'ok' if seen else 'FAIL'}")
+        del graph, cache
 
     # -- 8. serving rows as ALA input --------------------------------------
     from repro_torch.bench.harness import measure_arch
@@ -1181,8 +1427,10 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)")
 
     # -- 10. result -----------------------------------------------------------
-    sources = {"rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+    sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
+               "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                               "src/repro/kernels/rmsnorm/kernel.py:24"),
                "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:76"),
                "decode_attention": ("cuda", "src/repro_torch/csrc/decode_attention.cu",
@@ -1200,15 +1448,24 @@ def main() -> int:
             plain_ms=tm["plain_ms"], bound_ms=tm["bound"][0],
             bound_by=tm["bound"][1], library_ms=tm["library_ms"],
             device_ms=tm["device_ms"],
-            library_device_ms=tm["library_device_ms"], shape=tm["shape"]))
-    ok = (ok2 and ok3 and ok4 and ok5 and ok6 and ok8 and ok9
+            library_device_ms=tm["library_device_ms"], shape=tm["shape"],
+            **{k: tm[k] for k in ("library_call", "two_call_ms",
+                                  "copy_device_ms") if k in tm}))
+    ok = (ok2 and ok3 and ok4 and ok5 and ok6 and ok7 and ok8 and ok9
           and all(k["launches"] > 0 for k in kernels))
     print(f"[10] phases: tensor-core gate {ok2}, kernels {ok3}, timing shapes "
           f"{ok4}, 2-layer {ok5}, "
-          f"full width {ok6}, measure_arch {ok8}, ALA {ok9}; "
+          f"full width {ok6}, traces {ok7}, measure_arch {ok8}, ALA {ok9}; "
           f"{time.perf_counter() - t_start:.0f} s in all")
     if not ok:
-        print("chip_smoke: FAILED", file=sys.stderr)
+        failed = [name for name, good in (
+            ("[2] tensor-core gate", ok2), ("[3] kernels", ok3),
+            ("[4] timing shapes", ok4), ("[5] 2-layer", ok5),
+            ("[6] full width", ok6), ("[7] traces", ok7),
+            ("[8] measure_arch", ok8), ("[9] ALA", ok9),
+            ("[10] launches", all(k["launches"] > 0 for k in kernels)))
+            if not good]
+        print(f"chip_smoke: FAILED: {', '.join(failed)}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))
     print(smi)

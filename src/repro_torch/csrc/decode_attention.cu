@@ -39,13 +39,17 @@
 //    row over Dh / 4 lanes, dot products reduced by shuffles;
 //  - splits only where they pay: the grid is (KV * head chunks, B,
 //    n_split), and the splits of one (b, head chunk) form a cluster.  The
-//    host (kernels/decode_attention/kernel.py::split_plan) adds splits
-//    while the grid stays within one block for every two SMs, up to 8:
-//    sixty-four 8-warp blocks already draw what the card's memory gives
-//    this access pattern, and a split costs its merge.  Each split is a
-//    whole number of 64-position tiles and none starts past pos; for one
-//    shape, pos and card the plan is fixed, so the result is
-//    deterministic;
+//    host (kernels/decode_attention/kernel.py::split_count) adds splits
+//    while the grid stays within one block for every two SMs, up to 8 and
+//    up to the cache's tiles: sixty-four 8-warp blocks already draw what
+//    the card's memory gives this access pattern, and a split costs its
+//    merge.  The grid does not depend on pos: the kernel reads pos from
+//    device memory and cuts 0..pos itself into at most n_split splits of
+//    whole 64-position tiles, none starting past pos (kernel.py::
+//    splits_of); a block past them computes nothing but takes part in the
+//    cluster's barriers and writes.  So one launch, captured in a CUDA
+//    graph, serves every position, and for one shape, pos and card the
+//    plan is fixed, so the result is deterministic;
 //  - rows past pos are never read (the copy of such a row reads 0 bytes
 //    and writes zeros, and its weight is 0), so stale or NaN slots cannot
 //    reach the result; the cache is read in place in the model's
@@ -85,7 +89,8 @@ struct DecodeParams {
   const void* k;
   const void* v;
   void* o;
-  int G, n_hc, n_valid, n_split, split_rows;  // n_valid = pos + 1
+  const long long* pos;  // one value in device memory
+  int G, n_hc, T, n_split;
   int64_t q_sb, q_sh;
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
@@ -505,9 +510,20 @@ __global__ void __launch_bounds__(NT) decode_attn_split(DecodeParams p) {
   const int ng = min(GMAX, p.G - g0);  // query heads of this block
   const int h0 = kvh * p.G + g0;     // its first query head
 
+  // the splits of positions 0..pos (kernel.py::splits_of), pos clamped
+  // to the cache so that no value of it reads past the cache
+  const int pos = static_cast<int>(
+      min(max(*p.pos, -1LL), static_cast<long long>(p.T) - 1));
+  const int n_tiles = max(pos, 0) / TILE + 1;
+  const int per = (n_tiles + min(p.n_split, n_tiles) - 1) /
+                  min(p.n_split, n_tiles);
+  const int n_live = (n_tiles + per - 1) / per;
+  const int split_rows = per * TILE;
+
   WarpJob w;
-  w.t_begin = split * p.split_rows;
-  w.t_end = min(w.t_begin + p.split_rows, p.n_valid);
+  w.t_begin = split * split_rows;
+  w.t_end = split < n_live ? min(w.t_begin + split_rows, pos + 1)
+                           : w.t_begin;  // past the splits: no rows
   const int n_chunks = (w.t_end - w.t_begin + CH - 1) / CH;
   w.mine = n_chunks > warp ? (n_chunks - warp + NW - 1) / NW : 0;
   w.warp = warp;
@@ -549,8 +565,8 @@ __global__ void __launch_bounds__(NT) decode_attn_split(DecodeParams p) {
   }
   if (p.n_split == 1) return;
 
-  // merge the splits, which are the blocks of this cluster, in split
-  // order; block r writes the elements r, r + n_split, ... of 128
+  // merge the live splits, which are the first blocks of this cluster, in
+  // split order; block r writes the elements r, r + n_split, ... of 128
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every split's part is in its shared memory
@@ -558,10 +574,10 @@ __global__ void __launch_bounds__(NT) decode_attn_split(DecodeParams p) {
   for (int e = split * NT + threadIdx.x; e < ng * DH; e += ns * NT) {
     const int g = e / DH, c = e % DH;
     float M = NEG_INF;
-    for (int r = 0; r < ns; ++r)
+    for (int r = 0; r < n_live; ++r)
       M = fmaxf(M, *cluster.map_shared_rank(part + g, r));
     float ls = 0.f, as = 0.f;
-    for (int r = 0; r < ns; ++r) {
+    for (int r = 0; r < n_live; ++r) {
       const float* pr = cluster.map_shared_rank(part, r);
       const float wt = exp2f(pr[g] - M);
       ls = fmaf(wt, pr[GMAX + g], ls);
@@ -635,22 +651,23 @@ int smem_for(int DH) {
 
 // dtype: 0 = float32, 1 = bfloat16.  q: (B, H, Dh), k/v: (B, T, KV, Dh),
 // o: (B, H, Dh), with H = KV * G and strides in elements; the last
-// dimension of every tensor is contiguous.  Attends to t <= pos in n_split
-// (at most 8) splits of split_rows positions, a multiple of 64; the last
-// split holds pos.  Returns a cudaError_t.
+// dimension of every tensor is contiguous.  pos: one int64 in device
+// memory, read by the kernel.  Attends to t <= pos (pos clamped to
+// [-1, T - 1]) in at most n_split (1 to 8, at most T's 64-position tiles)
+// splits of whole tiles; the launch does not depend on pos.  Returns a
+// cudaError_t.
 extern "C" int decode_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int KV, int G, int DH, int pos, int n_split, int split_rows,
+    const void* q, const void* k, const void* v, void* o, const void* pos,
+    int dtype, int B, int KV, int G, int DH, int T, int n_split,
     int64_t q_sb, int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, int64_t o_sh,
     float scale, void* stream) {
-  if (n_split < 1 || n_split > MAX_SPLIT || split_rows % TILE ||
-      static_cast<int64_t>(n_split - 1) * split_rows > pos ||
-      static_cast<int64_t>(n_split) * split_rows <= pos)
+  if (n_split < 1 || n_split > MAX_SPLIT || T < 1 ||
+      static_cast<int64_t>(n_split - 1) * TILE >= T)
     return cudaErrorInvalidValue;
-  DecodeParams p{q,    k,    v,    o,    G,    (G + GMAX - 1) / GMAX,
-                 pos + 1, n_split, split_rows, q_sb, q_sh, k_sb, k_st, k_sh,
-                 v_sb, v_st, v_sh, o_sb, o_sh, scale};
+  DecodeParams p{q,    k,    v,    o,    static_cast<const long long*>(pos),
+                 G,    (G + GMAX - 1) / GMAX, T, n_split, q_sb, q_sh, k_sb,
+                 k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(p, B, KV, DH, st);
   if (dtype == 1) return dispatch<bf16>(p, B, KV, DH, st);

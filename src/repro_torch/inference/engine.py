@@ -2,12 +2,16 @@
 
 Serves homogeneous batches (fixed ii -> oo at batch size bb) — the same
 workload regime the paper benchmarks and that ALA models.  Prefill runs
-the prompt once; decode is a plain Python loop of ``decode_step`` calls
-that update the KV cache in place.
+the prompt once.  On a card, decode replays one CUDA graph a step
+(``DecodeGraph``): the step, greedy sampling included, is captured once
+for each (batch, max_len) signature, as the JAX engine jits its decode
+scan once for each signature, so the timed loop runs compiled steps, not
+Python dispatch.  On the CPU, decode is a plain Python loop of
+``decode_step`` calls that update the KV cache in place.
 
 ``measure_throughput`` produces (ii, oo, bb, thpt) rows by running the
 model on the card.  Timers are ``time.perf_counter`` around work that ends
-in ``torch.cuda.synchronize()``.
+in ``torch.cuda.synchronize()``; capture happens before them.
 """
 from __future__ import annotations
 
@@ -31,6 +35,119 @@ class GenerationResult:
     tokens_per_s: float         # output-token throughput (the paper's thpt)
 
 
+class DecodeGraph:
+    """One decode step of ``model`` at (batch, max_len), captured as a CUDA
+    graph on buffers it owns: the KV cache and its ``pos_t``, the input
+    token ``tok`` (B, 1), the step's ``logits`` (B, 1, V) and ``history``
+    (B, max_len + 1), where each replay writes the greedy next token at its
+    position.  A replay reads ``tok`` and ``pos_t``, writes K/V at pos_t,
+    the logits, the greedy token into ``tok`` and ``history``, and advances
+    pos_t: replays in a row decode greedily with no host work between.
+
+    Before the capture one eager step runs on a side stream, so kernel
+    builds, function attributes and cuBLAS workspaces are set up outside
+    it (its launches count like any other); the cache and ``pos_t`` are
+    zeroed after.  Fill the cache with ``model.prefill(..., cache=
+    graph.cache)``.  The launch counters of the captured kernels tick once,
+    at capture, not at replays."""
+
+    @torch.inference_mode()
+    def __init__(self, model: Model, batch: int, max_len: int):
+        self.model = model
+        self.signature = (batch, max_len)
+        self.cache = model.init_cache(batch, max_len)
+        dev = model.device
+        self.tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+        self.history = torch.zeros((batch, max_len + 1), dtype=torch.int64,
+                                   device=dev)
+        self._capture()
+
+    def _capture(self) -> None:
+        dev = self.model.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.cache.pos_t.zero_()
+        # the captured graph is kept beside its instance, so that
+        # ``kernel_names`` can list its nodes; instantiated here, not at the
+        # first replay
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(self.graph):
+            self.logits = self._step()
+        self.graph.instantiate()
+        for kv in self.cache.blocks:
+            kv.k.zero_()
+            kv.v.zero_()
+        self.cache.pos_t.zero_()
+        torch.cuda.synchronize(dev)
+
+    def _step(self):
+        logits, _ = self.model.decode_step(self.cache, self.tok)
+        nxt = sample(logits, vocab_size=self.model.cfg.vocab_size)
+        self.tok.copy_(nxt)
+        self.history.index_copy_(1, self.cache.pos_t, nxt)
+        return logits
+
+    @torch.inference_mode()
+    def start(self, tok) -> None:
+        """Takes the token sampled from the prefill's logits as the first
+        replay's input, and as the history's entry at pos_t."""
+        self.tok.copy_(tok)
+        self.history.index_copy_(1, self.cache.pos_t, tok)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def kernel_names(self) -> List[str]:
+        """The names of the kernels one replay launches, in the graph's node
+        order, read from the captured graph through the CUDA driver (12.3 or
+        later): what a replay runs, independent of any tracer."""
+        import ctypes
+        cu = ctypes.CDLL("libcuda.so.1")
+        ptr, size_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+        for fn, args in (("cuGraphGetNodes", [ptr, ptr, size_p]),
+                         ("cuGraphNodeGetType", [ptr, ptr]),
+                         ("cuGraphKernelNodeGetParams_v2", [ptr, ptr]),
+                         ("cuFuncGetName", [ptr, ptr]),
+                         ("cuKernelGetName", [ptr, ptr])):
+            f = getattr(cu, fn)
+            f.argtypes, f.restype = args, ctypes.c_int
+
+        def check(rc, what):
+            if rc != 0:
+                raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+        graph = ptr(self.graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        nodes = (ptr * n.value)()
+        check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        names = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+            params = (ctypes.c_uint64 * 16)()
+            check(cu.cuGraphKernelNodeGetParams_v2(node, params),
+                  "cuGraphKernelNodeGetParams")
+            name = ctypes.c_char_p()
+            if params[0]:
+                check(cu.cuFuncGetName(ctypes.byref(name), ptr(params[0])),
+                      "cuFuncGetName")
+            else:
+                check(cu.cuKernelGetName(ctypes.byref(name), ptr(params[7])),
+                      "cuKernelGetName")
+            names.append(name.value.decode())
+        return names
+
+
 class ServingEngine:
     def __init__(self, model: Model, temperature: float = 0.0,
                  device=None):
@@ -40,10 +157,23 @@ class ServingEngine:
                              f"on {self.device}")
         self.model = model
         self.temperature = temperature
+        self._graph: Optional[DecodeGraph] = None
+        self.captures = 0   # decode graphs captured
+        self.replays = 0    # decode steps replayed
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def decode_graph(self, batch: int, max_len: int) -> DecodeGraph:
+        """The decode graph of (batch, max_len), captured now unless it is
+        the one held; only one is held at a time."""
+        g = self._graph
+        if g is None or g.signature != (batch, max_len):
+            self._graph = g = None  # free the old one before capturing
+            g = self._graph = DecodeGraph(self.model, batch, max_len)
+            self.captures += 1
+        return g
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
@@ -51,23 +181,43 @@ class ServingEngine:
         """prompts: (B, ii) integer token ids."""
         b, ii = prompts.shape
         max_len = max_len or (ii + max_new_tokens)
+        if ii + max_new_tokens - 1 > max_len:
+            raise ValueError(f"{ii} + {max_new_tokens} tokens need more than "
+                             f"{max_len} cache slots")
         vocab = self.model.cfg.vocab_size
         # a fixed seed, as the JAX engine samples with fixed keys
         gen = torch.Generator(device=self.device).manual_seed(0)
         tokens = torch.as_tensor(prompts, dtype=torch.int64,
                                  device=self.device)
+        graph = (self.decode_graph(b, max_len)
+                 if self.device.type == "cuda" else None)
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(tokens, max_len)
+        logits, cache = self.model.prefill(
+            tokens, max_len, cache=graph.cache if graph else None)
         tok = sample(logits, gen, temperature=self.temperature,
                      vocab_size=vocab)
         self._sync()
         t1 = time.perf_counter()
         toks = [tok]
-        for _ in range(max_new_tokens - 1):
-            logits, cache = self.model.decode_step(cache, tok)
-            tok = sample(logits, gen, temperature=self.temperature,
-                         vocab_size=vocab)
-            toks.append(tok)
+        if graph is None:
+            for _ in range(max_new_tokens - 1):
+                logits, cache = self.model.decode_step(cache, tok)
+                tok = sample(logits, gen, temperature=self.temperature,
+                             vocab_size=vocab)
+                toks.append(tok)
+        else:
+            graph.start(tok)
+            for _ in range(max_new_tokens - 1):
+                graph.replay()
+                if self.temperature > 0.0:
+                    tok = sample(graph.logits, gen,
+                                 temperature=self.temperature,
+                                 vocab_size=vocab)
+                    graph.tok.copy_(tok)
+                    toks.append(tok)
+            self.replays += max_new_tokens - 1
+            if self.temperature <= 0.0:
+                toks = [graph.history[:, ii:ii + max_new_tokens]]
         self._sync()
         t2 = time.perf_counter()
         out = torch.cat(toks, dim=1).cpu().numpy().astype(np.int32)

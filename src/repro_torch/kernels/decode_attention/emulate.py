@@ -3,7 +3,8 @@ PyTorch.
 
 ``ref.decode_attention_ref`` is the function K3 computes; this is how the
 kernel computes it.  Positions 0..pos are cut into the splits of
-``kernel.split_plan`` (whole 64-position tiles).  In a split, warp w takes
+``kernel_splits`` (whole 64-position tiles), which is how the kernel plans
+them from the position it reads in device memory.  In a split, warp w takes
 the chunks of 8 positions w, w + 8, ... in order and keeps its own fp32
 (m, l, acc) in the log2 domain, rescaled when m moves; the warps merge in
 warp order and the splits in split order, with weights 2^(m_i - M), and the
@@ -17,11 +18,23 @@ it.
 """
 import torch
 
-from repro_torch.kernels.decode_attention.kernel import (CHUNK, WARPS,
-                                                        splits_of)
+from repro_torch.kernels.decode_attention.kernel import CHUNK, TILE, WARPS
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
+
+
+def kernel_splits(pos: int, n_split: int, t: int):
+    """(live splits, split_rows) as the kernel computes them, in its
+    integer arithmetic, for the position ``pos`` it reads, a grid of
+    ``n_split`` splits and a cache of ``t`` slots: the position clamped to
+    the cache, whole tiles a split, none past pos.  Equal to
+    ``kernel.splits_of(pos, n_split)`` for 0 <= pos < t."""
+    pos = min(max(pos, -1), t - 1)
+    n_tiles = max(pos, 0) // TILE + 1
+    m = min(n_split, n_tiles)
+    per = (n_tiles + m - 1) // m
+    return (n_tiles + per - 1) // per, per * TILE
 
 
 def _merge(parts):
@@ -65,15 +78,15 @@ def decode_attention_split_emulated(q, k, v, pos: int, n_split: int,
     """q: (B, H, Dh); k/v: (B, T, KV, Dh), float32 or bfloat16 -> (B, H,
     Dh) in q's dtype.
 
-    The splits are those the kernel launches for ``n_split``
-    (``kernel.splits_of``)."""
+    The splits are those the kernel runs at ``pos`` in a grid of
+    ``n_split`` splits (``kernel_splits``)."""
     b, h, dh = q.shape
     kv = k.shape[2]
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     bf16 = q.dtype == torch.bfloat16
     c = torch.tensor(scale, dtype=torch.float32) * \
         torch.tensor(LOG2E, dtype=torch.float32)
-    _, rows = splits_of(pos, n_split)
+    _, rows = kernel_splits(pos, n_split, k.shape[1])
     qf = q.float().reshape(b, kv, h // kv, dh)
     if not bf16:
         qf = qf * c.to(q.device)

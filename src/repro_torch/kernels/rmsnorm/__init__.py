@@ -1,1 +1,2 @@
-"""Fused RMSNorm: Triton kernel, plain version and wrapper."""
+"""RMSNorm, plain and fused with the residual add: CUDA kernel, plain
+version and wrapper."""

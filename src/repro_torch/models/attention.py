@@ -92,20 +92,24 @@ def attend_full(cfg: ModelConfig, params, x, positions, causal=None):
     return _out_proj(params, out), KVCache(k=k, v=v)
 
 
-def attend_decode(cfg: ModelConfig, params, x, cache: KVCache, pos: int):
-    """One-token decode. ``x``: (B, 1, D); ``pos``: index of the new token.
+def attend_decode(cfg: ModelConfig, params, x, cache: KVCache, pos):
+    """One-token decode. ``x``: (B, 1, D); ``pos``: index of the new token,
+    an int or a one-element int64 tensor on x's device.
 
     Writes K/V at ``pos`` into ``cache`` in place (where the JAX package
-    donates the cache buffer) and attends to positions <= pos."""
+    donates the cache buffer) and attends to positions <= pos.  The
+    position is used only as a device tensor, as the JAX package traces
+    it, so a captured step follows it."""
     b = x.shape[0]
+    pos_t = torch.as_tensor(pos, dtype=torch.int64, device=x.device).reshape(1)
     q = _project_q(cfg, params, x)                   # (B,1,H,Dh)
     k_new, v_new = _project_kv(cfg, params, x)       # (B,1,KV,Dh)
-    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    posv = pos_t.expand(b)[:, None]
     q = apply_rope(q, posv, cfg.rope_theta)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
-    cache.k[:, pos] = k_new[:, 0]
-    cache.v[:, pos] = v_new[:, 0]
-    out = da_ops.decode_attention(q[:, 0], cache.k, cache.v, pos,
+    cache.k.index_copy_(1, pos_t, k_new)
+    cache.v.index_copy_(1, pos_t, v_new)
+    out = da_ops.decode_attention(q[:, 0], cache.k, cache.v, pos_t,
                                   scale=1.0 / (cfg.d_head ** 0.5))
     return _out_proj(params, out[:, None]), cache
 

@@ -46,6 +46,12 @@ def rmsnorm(x, params, eps: float = 1e-5):
     return rms_ops.rmsnorm(x, params["scale"], eps=eps)
 
 
+def add_rmsnorm(x, r, params, eps: float = 1e-5):
+    """The residual add ``x + r`` and the norm after it, in one kernel:
+    returns (x + r, rmsnorm(x + r))."""
+    return rms_ops.add_rmsnorm(x, r, params["scale"], eps=eps)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------

@@ -3,9 +3,14 @@ stacks, the path of ``repro.models.transformer`` that serving runs.
 
 The stack is a Python loop over ``cfg.n_periods`` periods of
 ``cfg.period`` blocks; parameters live in ``nn.ParameterDict``s named as the
-JAX pytree (``blocks.<period>.<position>.attn.wq``).  The decode cache keeps
+JAX pytree (``blocks.<period>.<position>.attn.wq``).  Every residual add
+that a norm follows runs fused with that norm (``layers.add_rmsnorm``): the
+attention add with the block's ``norm2``, the MLP add with the next block's
+``norm1`` or, after the last block, the final norm.  The decode cache keeps
 the JAX layout, one ``KVCache`` per period position with a leading
-``n_periods`` axis, and is written in place.
+``n_periods`` axis, and is written in place.  A decode step reads its
+position from the device (``DecodeCache.pos_t``) and advances it there, so
+the step holds no host value and can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -26,9 +31,13 @@ _NORM_PARAMS = ("scale", "q_norm", "k_norm")
 
 class DecodeCache(NamedTuple):
     """Per-model decode state: a tuple over period positions of KV caches
-    with a leading ``n_periods`` axis, (n_periods, B, T, KV, Dh)."""
+    with a leading ``n_periods`` axis, (n_periods, B, T, KV, Dh), and the
+    next position to write, twice: ``pos`` on the host, for bounds checks
+    only, and ``pos_t``, a one-element int64 tensor on the cache's device,
+    which every computation reads and ``decode_step`` advances in place."""
     blocks: Tuple[attn.KVCache, ...]
-    pos: int  # next position to write
+    pos: int
+    pos_t: torch.Tensor
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -59,24 +68,14 @@ def _init_block(cfg: ModelConfig, spec: BlockSpec, generator):
     return p
 
 
-def _apply_block_full(cfg, p, x, positions):
-    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    out, kv = attn.attend_full(cfg, p["attn"], h, positions)
-    x = x + out
+def _residuals(cfg, p, x, out, next_norm):
+    """The rest of a block after its attention output ``out``: the residual
+    add fused with ``norm2``, the MLP, and its add fused with
+    ``next_norm``.  Returns (x, next_norm(x))."""
     if cfg.d_ff > 0:
-        h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp(cfg, p["mlp"], h2)
-    return x, kv
-
-
-def _apply_block_decode(cfg, p, x, kv: attn.KVCache, pos: int):
-    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    out, _ = attn.attend_decode(cfg, p["attn"], h, kv, pos)
-    x = x + out
-    if cfg.d_ff > 0:
-        h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp(cfg, p["mlp"], h2)
-    return x
+        x, h2 = L.add_rmsnorm(x, out, p["norm2"], cfg.norm_eps)
+        out = L.mlp(cfg, p["mlp"], h2)
+    return L.add_rmsnorm(x, out, next_norm, cfg.norm_eps)
 
 
 def flatten_params(prefix: str, tree: dict) -> dict:
@@ -138,6 +137,15 @@ class Model(nn.Module):
         return self
 
     # -- serving -------------------------------------------------------------
+    def _layers(self):
+        """(period, position, block, the norm after the block) for every
+        block in order; the norm after the last block is the final norm."""
+        flat = [(p, i, block) for p, period in enumerate(self.blocks)
+                for i, block in enumerate(period)]
+        after = [block["norm1"] for _, _, block in flat[1:]]
+        return [(p, i, block, norm) for (p, i, block), norm
+                in zip(flat, after + [self.final_norm])]
+
     def init_cache(self, batch: int, max_len: int,
                    filled: Optional[int] = None) -> DecodeCache:
         cfg = self.cfg
@@ -148,45 +156,64 @@ class Model(nn.Module):
                                device=self.device)
 
         blocks = tuple(attn.KVCache(k=zeros(), v=zeros()) for _ in cfg.period)
-        return DecodeCache(blocks=blocks, pos=filled or 0)
+        pos = filled or 0
+        return DecodeCache(blocks=blocks, pos=pos, pos_t=torch.full(
+            (1,), pos, dtype=torch.int64, device=self.device))
 
     @torch.inference_mode()
-    def prefill(self, tokens, max_len: Optional[int] = None):
+    def prefill(self, tokens, max_len: Optional[int] = None,
+                cache: Optional[DecodeCache] = None):
         """Run the prompt ``tokens`` (B, S); returns (last-token logits
         (B, 1, padded_vocab), DecodeCache).
 
         The KV cache is written into a ``max_len``-long zeroed buffer so
-        decode can continue in place."""
+        decode can continue in place; ``cache`` given, it is that cache's
+        buffers (zeroed first), and its ``pos_t`` is set to S in place."""
         cfg = self.cfg
         b, s = tokens.shape
-        max_len = max_len or s
-        if max_len < s:
-            raise ValueError(f"max_len {max_len} < prompt length {s}")
-        cache = self.init_cache(b, max_len, filled=s)
+        if cache is None:
+            max_len = max_len or s
+            if max_len < s:
+                raise ValueError(f"max_len {max_len} < prompt length {s}")
+            cache = self.init_cache(b, max_len, filled=s)
+        else:
+            shape = cache.blocks[0].k.shape
+            if shape[1] != b or shape[2] < s or max_len not in (None,
+                                                                shape[2]):
+                raise ValueError(f"a cache of {tuple(shape)} cannot take "
+                                 f"{b} prompts of {s} tokens")
+            for kv in cache.blocks:
+                kv.k.zero_()
+                kv.v.zero_()
+            cache.pos_t.fill_(s)
+            cache = cache._replace(pos=s)
         x = L.embed(cfg, self.embed, tokens)
+        h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
         positions = torch.arange(s, device=x.device)[None, :]
-        for p, period in enumerate(self.blocks):
-            for i, block in enumerate(period):
-                x, kv = _apply_block_full(cfg, block, x, positions)
-                cache.blocks[i].k[p, :, :s] = kv.k
-                cache.blocks[i].v[p, :, :s] = kv.v
-        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return L.lm_logits(cfg, self.embed, x[:, -1:]), cache
+        for p, i, block, norm in self._layers():
+            out, kv = attn.attend_full(cfg, block["attn"], h, positions)
+            x, h = _residuals(cfg, block, x, out, norm)
+            cache.blocks[i].k[p, :, :s] = kv.k
+            cache.blocks[i].v[p, :, :s] = kv.v
+        return L.lm_logits(cfg, self.embed, h[:, -1:]), cache
 
     @torch.inference_mode()
     def decode_step(self, cache: DecodeCache, tokens):
-        """tokens: (B, 1) the token sampled at cache.pos-1; returns logits
-        for position cache.pos and the cache, updated in place."""
+        """tokens: (B, 1) the token sampled at position cache.pos_t - 1;
+        returns logits for position cache.pos_t and the cache, updated in
+        place: K/V written at pos_t, then pos_t advanced by one.  Only the
+        bounds check reads the host's ``cache.pos``."""
         cfg = self.cfg
         pos = cache.pos
         if pos >= cache.blocks[0].k.shape[2]:
             raise ValueError(f"decode position {pos} is past the cache")
         x = L.embed(cfg, self.embed, tokens)
-        for p, period in enumerate(self.blocks):
-            for i, block in enumerate(period):
-                kv = attn.KVCache(k=cache.blocks[i].k[p],
-                                  v=cache.blocks[i].v[p])
-                x = _apply_block_decode(cfg, block, x, kv, pos)
-        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        logits = L.lm_logits(cfg, self.embed, x)
-        return logits, DecodeCache(blocks=cache.blocks, pos=pos + 1)
+        h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
+        for p, i, block, norm in self._layers():
+            kv = attn.KVCache(k=cache.blocks[i].k[p], v=cache.blocks[i].v[p])
+            out, _ = attn.attend_decode(cfg, block["attn"], h, kv,
+                                        cache.pos_t)
+            x, h = _residuals(cfg, block, x, out, norm)
+        logits = L.lm_logits(cfg, self.embed, h)
+        cache.pos_t.add_(1)
+        return logits, cache._replace(pos=pos + 1)

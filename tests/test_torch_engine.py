@@ -81,3 +81,35 @@ def test_sampling_matches_jax_greedy_and_masks_padding():
         assert set(row) <= set(allowed)
     with pytest.raises(ValueError, match="generator"):
         sample(torch.from_numpy(logits), temperature=1.0)
+
+
+def test_cpu_engine_is_the_eager_loop():
+    _, teng = _engines()
+    prompts = np.random.default_rng(2).integers(0, 256, (2, 5), dtype=np.int32)
+    teng.generate(prompts, 4)
+    assert (teng.captures, teng.replays) == (0, 0)
+    with pytest.raises(ValueError, match="cache slots"):
+        teng.generate(prompts, 4, max_len=7)
+
+
+def test_decode_graph_step_gives_the_eager_tokens(monkeypatch):
+    """The graph's step, run eagerly on CPU tensors (no capture here):
+    the greedy tokens that replays leave in ``history`` and ``tok`` are
+    the eager loop's, with the cache filled in place by prefill."""
+    from repro_torch.inference.engine import DecodeGraph
+    _, teng = _engines()
+    model = teng.model
+    prompts = np.random.default_rng(3).integers(0, 256, (2, 6), dtype=np.int32)
+    want = teng.generate(prompts, 5).tokens
+    monkeypatch.setattr(DecodeGraph, "_capture", lambda self: None)
+    graph = DecodeGraph(model, 2, 11)
+    logits, _ = model.prefill(torch.from_numpy(prompts).long(),
+                              cache=graph.cache)
+    graph.start(sample(logits, vocab_size=model.cfg.vocab_size))
+    with torch.inference_mode():
+        for _ in range(4):
+            graph.logits = graph._step()
+    got = graph.history[:, 6:11].numpy()
+    np.testing.assert_array_equal(got, want)
+    assert int(graph.cache.pos_t) == 10
+    assert torch.equal(graph.tok[:, 0], graph.history[:, 10])

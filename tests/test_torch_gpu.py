@@ -1,12 +1,16 @@
-"""The torch port's CUDA and Triton kernels against their plain versions,
+"""The torch port's CUDA kernels against their plain versions,
 on a CUDA card: the shape sweeps of ``test_kernels.py``, ragged lengths,
 llama3.1-8b widths, a cache holding NaN past the fill level, decode
 attention across its splits (bit-equal across calls, and within 1e-6 or
 one bf16 ulp of its split arithmetic emulated in torch), both attentions
 on strided views with NaN around them, flash attention with its bf16 products
 on the tensor cores (in its SASS) and, in bf16, within one ulp of its
-rounding points emulated in torch; then the
-smoke model on the card against the same weights on the CPU.  Tolerances:
+rounding points emulated in torch; RMSNorm fused with the residual add
+(the sum bit for bit ``x + r``); decode attention captured in a CUDA graph
+and replayed at positions across its splits, bit-equal to eager calls; then
+the smoke model on the card against the same weights on the CPU, and its
+decode step replayed as a CUDA graph bit for bit against the eager step,
+through the serving engine too.  Tolerances:
 fp32 2e-5, bf16 2e-2, as ``test_kernels.py``.  The GBT-histogram kernel is
 held to its exact contract: the bits of numpy's float32 ``np.add.at``; the
 ALA's device paths (LM solve, forest traversal, bank distances) to their
@@ -35,7 +39,7 @@ from repro_torch.kernels.gbt_hist import ops as gh_ops
 from repro_torch.kernels.gbt_hist.cases import KINDS, level_case, level_state
 from repro_torch.kernels.gbt_hist.ref import gbt_hist_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
 from repro_torch.models.transformer import Model
 
 pytestmark = pytest.mark.gpu
@@ -71,6 +75,27 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert rms_ops.rmsnorm.launches == n + 1
     torch.testing.assert_close(got, rmsnorm_ref(x, scale), **_tol(dtype))
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (1, 256), (17, 96),
+                                   (8, 4096), (32, 4096), (4096, 4096),
+                                   (2, 33)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_add_rmsnorm_kernel(cuda, shape, dtype):
+    """s is ``x + r`` bit for bit, y within the tolerance of the plain
+    version; (2, 33) takes the kernel's path for rows that are not whole
+    16-byte vectors."""
+    gen = torch.Generator(cuda).manual_seed(9)
+    x = _randn(gen, shape, dtype, cuda)
+    r = _randn(gen, shape, dtype, cuda)
+    scale = _randn(gen, shape[-1:], torch.float32, cuda)
+    n = rms_ops.add_rmsnorm.launches
+    s, y = rms_ops.add_rmsnorm(x, r, scale)
+    torch.cuda.synchronize()
+    assert rms_ops.add_rmsnorm.launches == n + 1
+    want_s, want_y = add_rmsnorm_ref(x, r, scale)
+    assert torch.equal(s.view(torch.uint8), want_s.view(torch.uint8))
+    torch.testing.assert_close(y, want_y, **_tol(dtype))
 
 
 def _flash_want(q, k, v, causal):
@@ -191,10 +216,50 @@ def _split_positions(t, n_split):
 def _decode_split(q, k, v, pos, n_split):
     """The kernel with its positions cut into at most n_split splits."""
     out = torch.empty_like(q)
-    n, rows = da_kernel.splits_of(pos, n_split)
-    da_kernel.decode_attention_bhd(q, k, v, out, pos, n, rows,
-                                   q.shape[-1] ** -0.5)
+    da_kernel.decode_attention_bhd(
+        q, k, v, out, torch.tensor([pos], device=q.device), n_split,
+        q.shape[-1] ** -0.5)
     return out
+
+
+@pytest.mark.parametrize("b,n_split", [(1, None), (8, 5)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_graph_follows_the_device_position(cuda, b,
+                                                            n_split, dtype):
+    """One launch captured in a CUDA graph, replayed with the position
+    changed in device memory between replays, at positions that cross
+    split boundaries: bit-equal at each to the eager call at that int
+    position (the plan's splits, None, or a grid of n_split)."""
+    h, kv, t, dh = 32, 8, 2080, 128
+    gen = torch.Generator(cuda).manual_seed(10)
+    q = _randn(gen, (b, h, dh), dtype, cuda)
+    k = _randn(gen, (b, t, kv, dh), dtype, cuda)
+    v = _randn(gen, (b, t, kv, dh), dtype, cuda)
+    pos_t = torch.zeros(1, dtype=torch.int64, device=cuda)
+
+    def call(pos):
+        if n_split is None:
+            return da_ops.decode_attention(q, k, v, pos)
+        out = torch.empty_like(q)
+        p = pos if isinstance(pos, torch.Tensor) else torch.tensor(
+            [pos], device=cuda)
+        da_kernel.decode_attention_bhd(q, k, v, out, p, n_split, dh ** -0.5)
+        return out
+    call(pos_t)  # builds and configures the kernel outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(pos_t)
+    plan = n_split or da_kernel.split_count(b, kv, h // kv,
+                                            da_kernel.sm_count(0))
+    live = set()
+    for pos in (0, 63, 64, 300, 319, 320, 700, 1000, 1500, 2079):
+        pos_t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call(pos)), pos
+        live.add(da_kernel.splits_of(pos, plan)[0])
+    assert len(live) >= 3, live
 
 
 @pytest.mark.parametrize("b,n_split", [(1, None), (8, None), (8, 2),
@@ -302,7 +367,7 @@ def test_smoke_model_on_card_matches_cpu(cuda, dtype):
     steps = torch.randint(0, cfg.vocab_size, (3, 2, 1),
                           generator=torch.Generator().manual_seed(2))
     counts = (rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches,
-              da_ops.decode_attention.launches)
+              da_ops.decode_attention.launches, rms_ops.add_rmsnorm.launches)
     got, gcache = model.prefill(toks.to(cuda), 48)
     want, ccache = cpu.prefill(toks, 48)
     torch.testing.assert_close(got.cpu(), want, **_tol(dtype))
@@ -310,11 +375,87 @@ def test_smoke_model_on_card_matches_cpu(cuda, dtype):
         got, gcache = model.decode_step(gcache, tok.to(cuda))
         want, ccache = cpu.decode_step(ccache, tok)
         torch.testing.assert_close(got.cpu(), want, **_tol(dtype))
-    n_norm = 2 * cfg.n_layers + 1
     assert (rms_ops.rmsnorm.launches - counts[0],
+            rms_ops.add_rmsnorm.launches - counts[3],
             fa_ops.flash_attention.launches - counts[1],
             da_ops.decode_attention.launches - counts[2]) == \
-        (4 * n_norm, cfg.n_layers, 3 * cfg.n_layers)
+        (4, 4 * 2 * cfg.n_layers, cfg.n_layers, 3 * cfg.n_layers)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_graphed_decode_is_the_eager_step_bit_for_bit(cuda, dtype):
+    """16 replays of the captured step against 16 eager greedy steps from
+    the same prefill: the same logits and tokens, bit for bit, and the
+    kernels' counters ticked at capture only."""
+    from repro_torch.inference.engine import DecodeGraph
+    from repro_torch.inference.sampling import sample
+    cfg = get_smoke_config("llama3.1-8b").scaled(compute_dtype=dtype)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (3, 20), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(4))
+    graph = DecodeGraph(model, 3, 40)
+    counts = (rms_ops.add_rmsnorm.launches, da_ops.decode_attention.launches)
+    logits, cache = model.prefill(toks, 40)
+    tok = sample(logits, vocab_size=cfg.vocab_size)
+    want = []
+    for _ in range(16):
+        logits, cache = model.decode_step(cache, tok)
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+        want.append((logits.clone(), tok))
+    logits, _ = model.prefill(toks, cache=graph.cache)
+    graph.start(sample(logits, vocab_size=cfg.vocab_size))
+    n = (rms_ops.add_rmsnorm.launches, da_ops.decode_attention.launches)
+    for i, (wl, wt) in enumerate(want):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph.logits, wl), i
+        assert torch.equal(graph.tok, wt), i
+    assert (rms_ops.add_rmsnorm.launches, da_ops.decode_attention.launches) \
+        == n
+    assert n[1] - counts[1] == 16 * cfg.n_layers
+    assert int(graph.cache.pos_t) == 36
+    for kv, ref in zip(graph.cache.blocks, cache.blocks):
+        assert torch.equal(kv.k[:, :, :36], ref.k[:, :, :36])
+
+
+def test_decode_graph_lists_the_step_kernels(cuda):
+    """The captured step's kernel nodes, read from the graph: one K1 a norm
+    (2 a block and the final one), one K3 a block, no prefill attention."""
+    from repro_torch.inference.engine import DecodeGraph
+    cfg = get_smoke_config("llama3.1-8b").scaled(compute_dtype=torch.bfloat16)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    names = DecodeGraph(model, 2, 24).kernel_names()
+    assert sum("rmsnorm" in n for n in names) == 2 * cfg.n_layers + 1
+    assert sum("decode_attn" in n for n in names) == cfg.n_layers
+    assert not any("flash_fwd" in n for n in names)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_engine_replays_the_graph_and_gives_the_eager_tokens(cuda,
+                                                             temperature):
+    """``ServingEngine.generate`` on the card captures once per signature
+    and replays a step per token; its tokens are an eager loop's, with the
+    same generator at temperature > 0."""
+    from repro_torch.inference.engine import ServingEngine
+    from repro_torch.inference.sampling import sample
+    cfg = get_smoke_config("llama3.1-8b").scaled(compute_dtype=torch.bfloat16)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    engine = ServingEngine(model, temperature=temperature)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 12))
+    got = [engine.generate(prompts, 9).tokens for _ in range(2)]
+    assert (engine.captures, engine.replays) == (1, 16)
+    gen = torch.Generator(cuda).manual_seed(0)
+    logits, cache = model.prefill(torch.from_numpy(prompts).to(cuda), 21)
+    toks = [sample(logits, gen, temperature, vocab_size=cfg.vocab_size)]
+    for _ in range(8):
+        logits, cache = model.decode_step(cache, toks[-1])
+        toks.append(sample(logits, gen, temperature,
+                           vocab_size=cfg.vocab_size))
+    want = torch.cat(toks, 1).cpu().numpy()
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(got[1], want)
+    engine.generate(prompts[:2], 3)
+    assert (engine.captures, engine.replays) == (2, 18)
 
 
 def _hist_inputs(seed, L, n, f, n_nodes, n_bins):

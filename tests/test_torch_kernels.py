@@ -1,8 +1,8 @@
 """The torch kernels' plain versions (what the wrappers run on CPU tensors)
 against the JAX kernels' ``ref.py`` and their Pallas kernels in interpret
 mode, on the shape sweeps of ``test_kernels.py`` and at its tolerances:
-fp32 2e-5, bf16 2e-2.  The CUDA and Triton kernels themselves run only on a
-card: ``test_torch_gpu.py`` and ``chip_smoke.py`` hold them to these plain
+fp32 2e-5, bf16 2e-2.  The CUDA kernels themselves run only on a card:
+``test_torch_gpu.py`` and ``chip_smoke.py`` hold them to these plain
 versions."""
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +14,10 @@ from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.rmsnorm import ops as jrms_ops
 
 from repro_torch.kernels.decode_attention import ops as da_ops
-from repro_torch.kernels.decode_attention.emulate import \
-    decode_attention_split_emulated
-from repro_torch.kernels.decode_attention.kernel import TILE, split_plan
+from repro_torch.kernels.decode_attention.emulate import (
+    decode_attention_split_emulated, kernel_splits)
+from repro_torch.kernels.decode_attention.kernel import (TILE, cluster_size,
+                                                        split_plan, splits_of)
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -56,6 +57,23 @@ def test_rmsnorm_matches_jax(shape, dtype_name):
     for force in ("ref", "interpret"):
         _close(got, jrms_ops.rmsnorm(jx, jnp.asarray(scale), force=force,
                                      block_rows=8), dtype_name)
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (1, 256), (17, 96)])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_add_rmsnorm_matches_jax(shape, dtype_name):
+    """The fused entry's plain version: s is torch's ``x + r`` bit for bit,
+    and y the JAX kernel's RMSNorm of JAX's ``x + r``."""
+    (jx, jr), (tx, tr) = _inputs(10, [shape, shape], dtype_name)
+    scale = np.random.default_rng(11).standard_normal(shape[-1:])
+    scale = scale.astype(np.float32)
+    s, y = rms_ops.add_rmsnorm(tx, tr, torch.from_numpy(scale))
+    assert s.dtype == y.dtype == tx.dtype and s.shape == y.shape == tx.shape
+    assert torch.equal(s.view(torch.uint8), (tx + tr).view(torch.uint8))
+    _close(s, jx + jr, dtype_name)
+    for force in ("ref", "interpret"):
+        _close(y, jrms_ops.rmsnorm(jx + jr, jnp.asarray(scale), force=force,
+                                   block_rows=8), dtype_name)
 
 
 # ---------------------------------------------------------- flash attention --
@@ -168,6 +186,45 @@ def test_decode_attention_split_plan_covers_pos_in_whole_tiles():
                     assert 2 * n >= allowed
 
 
+@pytest.mark.parametrize("n_split", range(1, 9))
+def test_decode_attention_in_kernel_plan_is_splits_of(n_split):
+    """The plan the kernel computes from the position in device memory
+    (``emulate.kernel_splits``, its integer arithmetic) is ``splits_of`` at
+    every position of a 4,096-slot cache, and clamps a position past it."""
+    t = 4096
+    for pos in range(t):
+        assert kernel_splits(pos, n_split, t) == splits_of(pos, n_split), pos
+    assert kernel_splits(t + 5, n_split, t) == splits_of(t - 1, n_split)
+
+
+def test_decode_attention_grid_covers_the_splits_of_every_position():
+    """The launch's split count (``cluster_size``), fixed for a cache,
+    holds the plan's splits at every position of it, and equals the most
+    of them: no launch changes with the position."""
+    for b in (1, 2, 4, 8, 32):
+        for t in (1, 64, 65, 130, 576, 2080):
+            for sms in (78, 132):
+                grid = cluster_size(b, 8, 4, t, sms)
+                plans = [split_plan(b, 8, 4, p, sms)[0] for p in range(t)]
+                assert max(plans) == grid and (grid - 1) * TILE < t
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 200, 255])
+def test_decode_attention_takes_the_position_as_a_tensor(pos):
+    """pos as a one-element int64 tensor (as the decode step passes it)
+    gives what the int gives; other tensors are refused."""
+    _, (q, k, v) = _inputs(12, [(2, 8, 64), (2, 256, 2, 64),
+                                (2, 256, 2, 64)], "float32")
+    got = da_ops.decode_attention(q, k, v, torch.tensor([pos]))
+    assert torch.equal(got, da_ops.decode_attention(q, k, v, pos))
+    for bad in (torch.tensor(pos), torch.tensor([pos], dtype=torch.int32),
+                torch.tensor([pos, pos])):
+        with pytest.raises(ValueError, match="one-element int64"):
+            da_ops.decode_attention(q, k, v, bad)
+    with pytest.raises(ValueError, match="outside the cache"):
+        da_ops.decode_attention(q, k, v, torch.tensor([256]))
+
+
 def test_decode_attention_ignores_stale_cache():
     """Entries beyond pos must not affect the output."""
     _, (q, k, v) = _inputs(5, [(1, 4, 32), (1, 128, 2, 32), (1, 128, 2, 32)],
@@ -191,8 +248,9 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     _, (x, q, k) = _inputs(7, [(4, 64), (1, 16, 4, 32), (1, 16, 2, 32)],
                            "float32")
     rms_ops.rmsnorm(x, torch.ones(64))
+    rms_ops.add_rmsnorm(x, x, torch.ones(64))
     fa_ops.flash_attention(q, k, k)
     da_ops.decode_attention(q[:, 0], k, k, 9)
-    assert rms_ops.rmsnorm.launches == 0
+    assert rms_ops.rmsnorm.launches == rms_ops.add_rmsnorm.launches == 0
     assert fa_ops.flash_attention.launches == 0
     assert da_ops.decode_attention.launches == 0

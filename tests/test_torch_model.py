@@ -237,3 +237,129 @@ def test_cpu_path_leaves_launch_counters_at_zero():
     tmodel.decode_step(cache, torch.zeros((1, 1), dtype=torch.long))
     assert (rms_ops.rmsnorm.launches, fa_ops.flash_attention.launches,
             da_ops.decode_attention.launches) == before == (0, 0, 0)
+
+
+# ------------------------------------------- fused norms, device position --
+def _unfused(model, tokens, cache, pos=None):
+    """The block order before the fused norms, written out: every residual
+    add, then every norm, each alone.  ``pos`` None: a prefill into
+    ``cache`` from position 0; else one decode step at the int ``pos``.
+    Returns the last position's logits."""
+    cfg = model.cfg
+    eps = cfg.norm_eps
+    x = tlayers.embed(cfg, model.embed, tokens)
+    positions = torch.arange(tokens.shape[1])[None, :]
+    for p, period in enumerate(model.blocks):
+        for i, block in enumerate(period):
+            h = tlayers.rmsnorm(x, block["norm1"], eps)
+            if pos is None:
+                out, kv = tattn.attend_full(cfg, block["attn"], h, positions)
+                cache.blocks[i].k[p, :, :tokens.shape[1]] = kv.k
+                cache.blocks[i].v[p, :, :tokens.shape[1]] = kv.v
+            else:
+                kv = tattn.KVCache(k=cache.blocks[i].k[p],
+                                   v=cache.blocks[i].v[p])
+                out, _ = tattn.attend_decode(cfg, block["attn"], h, kv, pos)
+            x = x + out
+            h2 = tlayers.rmsnorm(x, block["norm2"], eps)
+            x = x + tlayers.mlp(cfg, block["mlp"], h2)
+    x = tlayers.rmsnorm(x, model.final_norm, eps)
+    return tlayers.lm_logits(cfg, model.embed, x[:, -1:])
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_fused_model_is_the_unfused_block_order_bit_for_bit(dtype_name):
+    """On the CPU the fused residual norms (``add_rmsnorm``) and the device
+    position change no bit of the logits or the cache against the unfused
+    block order, over a prefill and N_DECODE decode steps."""
+    cfg = get_smoke_config(ARCH).scaled(compute_dtype=_DTYPES[dtype_name][1])
+    model = Model(cfg).init(torch.Generator().manual_seed(4))
+    toks = torch.from_numpy(_tokens(5, (B, S), cfg.vocab_size)).long()
+    steps = torch.from_numpy(_tokens(6, (N_DECODE, B, 1), cfg.vocab_size))
+    max_len = S + N_DECODE
+    with torch.inference_mode():
+        got, cache = model.prefill(toks, max_len)
+        ref_cache = model.init_cache(B, max_len)
+        want = _unfused(model, toks, ref_cache)
+        assert torch.equal(got, want)
+        for n, tok in enumerate(steps.long()):
+            got, cache = model.decode_step(cache, tok)
+            want = _unfused(model, tok, ref_cache, pos=S + n)
+            assert torch.equal(got, want), n
+    for kv, ref in zip(cache.blocks, ref_cache.blocks):
+        assert torch.equal(kv.k, ref.k) and torch.equal(kv.v, ref.v)
+
+
+def test_forward_runs_one_plain_norm_and_the_rest_fused(monkeypatch):
+    """64 fused norms and 1 plain norm a forward at llama3.1-8b's 32
+    layers: 2 fused a block and the first block's norm1 alone, in prefill
+    and decode alike."""
+    calls = {"rmsnorm": 0, "add_rmsnorm": 0}
+    for name in calls:
+        fn = getattr(tlayers, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tlayers, name, counted)
+    cfg = get_smoke_config(ARCH)
+    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    _, cache = model.prefill(torch.zeros((1, 4), dtype=torch.long), 6)
+    assert calls == {"rmsnorm": 1, "add_rmsnorm": 2 * cfg.n_layers}
+    model.decode_step(cache, torch.zeros((1, 1), dtype=torch.long))
+    assert calls == {"rmsnorm": 2, "add_rmsnorm": 4 * cfg.n_layers}
+    assert 2 * get_config(ARCH).n_layers + 1 == 65
+
+
+def test_pos_t_follows_prefill_and_decode_steps():
+    model = Model(get_smoke_config(ARCH)).init(torch.Generator().manual_seed(1))
+    _, cache = model.prefill(torch.zeros((2, 5), dtype=torch.long), 9)
+    assert cache.pos_t.dtype == torch.int64 and cache.pos_t.shape == (1,)
+    assert cache.pos == int(cache.pos_t) == 5
+    for n in range(1, 4):
+        _, cache = model.decode_step(cache, torch.zeros((2, 1),
+                                                        dtype=torch.long))
+        assert cache.pos == int(cache.pos_t) == 5 + n
+
+
+def test_host_position_never_reaches_the_arithmetic():
+    """Two caches with the same pos_t and another host pos (both in
+    bounds) give the same logits and caches: only the bounds check reads
+    the host's pos."""
+    model = Model(get_smoke_config(ARCH)).init(torch.Generator().manual_seed(2))
+    toks = torch.from_numpy(_tokens(7, (B, S), model.cfg.vocab_size)).long()
+    _, cache = model.prefill(toks, S + 6)
+    other = cache._replace(
+        blocks=tuple(tattn.KVCache(k=kv.k.clone(), v=kv.v.clone())
+                     for kv in cache.blocks),
+        pos=2, pos_t=cache.pos_t.clone())
+    tok = toks[:, -1:]
+    for _ in range(3):
+        a, cache = model.decode_step(cache, tok)
+        b, other = model.decode_step(other, tok)
+        assert torch.equal(a, b)
+    for x, y in zip(cache.blocks, other.blocks):
+        assert torch.equal(x.k, y.k) and torch.equal(x.v, y.v)
+    assert int(cache.pos_t) == int(other.pos_t) == S + 3 != other.pos
+
+
+def test_prefill_fills_a_given_cache_in_place():
+    """``prefill(cache=...)`` zeroes the given buffers (a stale slot past
+    the prompt holds no old value), writes the prompt's K/V into them and
+    sets pos_t in place: the same logits and cache as a fresh prefill."""
+    model = Model(get_smoke_config(ARCH)).init(torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(_tokens(8, (B, S), model.cfg.vocab_size)).long()
+    want, fresh = model.prefill(toks, S + 4)
+    given = model.init_cache(B, S + 4, filled=S + 3)
+    for kv in given.blocks:
+        kv.k.fill_(float("nan"))
+        kv.v.fill_(7.0)
+    pos_t, ks = given.pos_t, [kv.k for kv in given.blocks]
+    got, cache = model.prefill(toks, cache=given)
+    assert torch.equal(got, want)
+    assert cache.pos == S and cache.pos_t is pos_t and int(pos_t) == S
+    for kv, ref, k in zip(cache.blocks, fresh.blocks, ks):
+        assert kv.k is k and torch.equal(kv.k, ref.k)
+        assert torch.equal(kv.v, ref.v)
+    with pytest.raises(ValueError, match="cannot take"):
+        model.prefill(toks[:1], cache=given)
