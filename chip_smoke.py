@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two paths on one NVIDIA card: serving
-llama3.1-8b, and the ALA pipeline (paper Alg 1-8) on the paper's data.
+the five dense configs (llama3.1-8b, llama3.2-3b, qwen3-0.6b, qwen2.5-32b,
+command-r-35b), and the ALA pipeline (paper Alg 1-8) on the paper's data
+and on the rows the card measures.
 
     python3 chip_smoke.py
 
@@ -15,13 +17,15 @@ Phases, each printing its own lines:
    ``cuobjdump -sass`` of the built flash-attention library must show HMMA
    or HGMMA instructions in every bf16 instantiation of the kernel;
 3. each kernel against its plain PyTorch version on the card: the shape
-   sweeps of ``tests/test_kernels.py``, ragged lengths, the llama3.1-8b
-   widths and a cache holding NaN past the fill level, fp32 within 2e-5
-   and bf16 within 2e-2; RMSNorm plain and fused with the residual add,
-   whose sum must be ``x + r`` bit for bit; decode attention captured in a
-   CUDA graph and replayed with the position changed in device memory, at
-   positions that cross split boundaries, bit-equal at each to the eager
-   call; flash attention also at ragged S around its
+   sweeps of ``tests/test_kernels.py``, ragged lengths, the five configs'
+   widths (RMSNorm at d 128 over qwen3's q/k-norm rows, 1,024 to 8,192;
+   both attentions at 16, 24, 32, 40 and 64 query heads over 8) and a
+   cache holding NaN past the fill level, fp32 within 2e-5 and bf16 within
+   2e-2; RMSNorm plain and fused with the residual add, whose sum must be
+   ``x + r`` bit for bit; decode attention captured in a CUDA graph and
+   replayed with the position changed in device memory, at positions that
+   cross split boundaries (at 32 and 24 query heads), bit-equal at each to
+   the eager call; flash attention also at ragged S around its
    64-row tiles for every head size, and on strided views whose
    surroundings hold NaN; decode attention where several splits run (B 1
    and 8 at a 2,080-slot cache, pos at 0, around a split boundary and at
@@ -42,13 +46,18 @@ Phases, each printing its own lines:
    calls ``x + r`` and ``F.rms_norm``), and for RMSNorm the device time of
    a ``copy_`` that moves the same bytes; then the kernel's device ms
    per call (every kernel of the call summed) and the library call's, from
-   one torch.profiler pass each; for decode attention also its n_split,
-   grid and achieved GB/s, and its device ms with the positions cut into
-   1, 2, 4 and 8 splits;
-5. llama3.1-8b at full width cut to 2 layers, on the card through the
-   kernels against the CPU through the plain versions, same weights; then
-   its decode step replayed as a CUDA graph (``DecodeGraph``) against 16
-   eager greedy steps, logits and tokens bit for bit;
+   one torch.profiler pass each; RMSNorm also at a prefill's rows of every
+   newer width and of qwen3's q/k norms, with how it cuts each width; for
+   decode attention also its n_split, grid and achieved GB/s, its device
+   ms with the positions cut into 1, 2, 4 and 8 splits, and the same at
+   the newer configs' groups (2, 3, 5, 8 query heads a KV head); K4 also
+   at the registry's 114 problems;
+5. each of the five configs at full width cut to 2 layers, on the card
+   through the kernels against the CPU through the plain versions, same
+   weights; then its decode step replayed as a CUDA graph
+   (``DecodeGraph``) against 16 eager greedy steps, logits and tokens bit
+   for bit, and the captured step's RMSNorm and decode-attention nodes
+   counted from the graph (one a norm, QK-norms included; one a layer);
 6. llama3.1-8b at full width (32 layers, bf16, seeded random weights)
    served by ``ServingEngine.measure_throughput``, which replays a CUDA
    graph a decode step; the kernels' launch counters and the engine's
@@ -75,13 +84,36 @@ Phases, each printing its own lines:
    K4's plain histograms; a traced SA evaluation and Alg 7 fit with their
    device-to-host copies and synchronisations, the fit held to exactly
    1,000 launches of each K4 kernel and at most 10 copies back;
-10. the kernel table as one JSON line, then ``{"ok": true, ...}`` last.
+10. llama3.2-3b, qwen3-0.6b, qwen2.5-32b and command-r-35b at full width
+    and full depth (seeded random weights, nothing cut), one after
+    another, each through ``measure_arch`` over phase [8]'s grid with its
+    launches counted exactly; parameters, peak memory, seconds and
+    throughput per model;
+11. Alg 4: ``ModelRegistry`` fitted on the card on ``suite`` plus the five
+    models' card rows, in one batched fit (one LM solve a padding class,
+    one ``grow_forests`` for every combination's Alg 3), against the same
+    fit on the CPU: databases within the LM contract (``core.fit.lm_agreement``; the
+    same comparison must refuse the card's LM run in bf16 or cut to 20
+    steps), Alg 3's trees equal to the host loop's over K4's plain
+    histograms, medAPE within
+    ``ALA_TOL``; then ``fit_uncertainty`` on the five card combinations
+    (the default ``SAConfig``), their estimates, and transfer to an A100
+    and a TPU v4 (donors the card's combinations, confidence below native
+    at every row) and to unregistered hardware (the sentinel);
+12. ``OnlineALA`` on the card ingests the five models' rows in two deltas,
+    its predictions after each bit-equal to a fresh card registry's; its
+    gate quarantines an injected NaN row and an exact duplicate;
+13. the Fig 7 baselines on ``inhouse`` on the card and the CPU: held-out
+    medAPE beside phase [9]'s ALA, within ``ALA_TOL``; the tree baselines'
+    trees equal to the host loop's over K4's plain histograms;
+14. the kernel table as one JSON line, then ``{"ok": true, ...}`` last.
 
 It needs a CUDA card and the repository around it, and exits non-zero
 without them or when any phase fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -143,6 +175,20 @@ ALA_TOL = dict(medape=0.01, eval_median=1.0, eval_max=15.0, err=1e-6,
                conf=1e-6)
 MEASURE_GRID = dict(grid_ii=(128, 512), grid_oo=(16, 32), grid_bb=(1, 4, 16),
                     reps=2)
+# the four newer dense configs: phase [5] at 2 layers, phase [10] at full
+# depth through measure_arch; with llama3.1-8b, five combinations of rows
+# the card measures for Alg 4 (phases [11], [12])
+DENSE_NEW = ("llama3.2-3b", "qwen3-0.6b", "qwen2.5-32b", "command-r-35b")
+GROUPS_NEW = (2, 3, 5, 8)        # their query heads a KV head (KV 8)
+WIDTHS_NEW = (1024, 3072, 5120, 8192)   # their d_model
+# K1 over qwen3's q/k norms in a prefill of 8 x 1,024 tokens, 16 heads
+QK_ROWS = (8192 * 16, 128)
+# K4 at the registry's joint Alg 3 fit: 33 suite and 5 card combinations
+# x 3 outputs, 16 database rows x 7 features, 16 nodes, 64 bins
+K4_REG = (114, 16, 7, 16, 64)
+# the online phase's SA budgets (the default SAConfig's 150 iterations cut
+# for time)
+ONLINE_SA = dict(n_iters=10, warm_iters=5)
 
 
 def _smi() -> str:
@@ -731,7 +777,7 @@ def ala_phase(smi):
                 grew == [alg7_levels, alg7_levels] and counts["dtoh"] <= 10)
     print(f"[9] checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
                                       for k, v in checks.items()))
-    return ok and all(checks.values()), launches
+    return ok and all(checks.values()), launches, got["medape"]
 
 
 def _decode_want(q, k, v, pos):
@@ -771,14 +817,14 @@ def _decode_split(q, k, v, pos, n_split):
 def decode_graph_checks(gen):
     """K3 captured once in a CUDA graph and replayed with the position
     changed in device memory, at positions that cross split boundaries
-    (B 1 with the wrapper's own plan, up to 7 splits; B 8 in a grid of 5),
-    bit-equal at each to the eager call at that int position.  Returns
-    {check: passed}."""
+    (B 1 with the wrapper's own plan, up to 7 splits, at 32 and at 24
+    query heads over 8; B 8 in a grid of 5), bit-equal at each to the
+    eager call at that int position.  Returns {check: passed}."""
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.decode_attention import ops as da_ops
-    h, kv, t, dh = 32, 8, 2080, 128
+    kv, t, dh = 8, 2080, 128
     same, live = [], set()
-    for b, n_split in ((1, None), (8, 5)):
+    for b, n_split, h in ((1, None, 32), (8, 5, 32), (1, None, 24)):
         for dt in (FP32, BF16):
             q = _randn(gen, (b, h, dh), dt)
             k = _randn(gen, (b, t, kv, dh), dt)
@@ -800,12 +846,13 @@ def decode_graph_checks(gen):
                 pos_t.fill_(pos)
                 graph.replay()
                 same.append(torch.equal(out, call(pos)))
-                live.add((b, da_kernel.splits_of(pos, plan)[0]))
+                live.add((b, h, da_kernel.splits_of(pos, plan)[0]))
             del graph
     torch.cuda.synchronize()
     return {f"one captured launch replayed at 10 positions, bit-equal to "
-            f"eager ({len(same)} cases, (B, live splits) {sorted(live)})":
-            all(same) and len(live) >= 6}
+            f"eager ({len(same)} cases, (B, H, live splits) "
+            f"{sorted(live)})": all(same) and len(live) >= 6
+            and any(h == 24 and n > 1 for _, h, n in live)}
 
 
 def decode_split_checks(gen, checks):
@@ -905,16 +952,608 @@ def eager_generate(model, prompts, oo):
                 tokens=torch.cat(toks, 1).cpu().numpy().astype(np.int32))
 
 
+def k1_plan(rows, d, elt=2, sms=132):
+    """How K1 cuts a row of ``d`` values of ``elt`` bytes
+    (``csrc/rmsnorm.cu::launch``): 16-byte vectors, one row a block."""
+    v = 16 // elt
+    nvec = d // v
+    if d % v or nvec > 4 * 1024:
+        return "staged in shared memory"
+    r = (1 if nvec <= 256 or (rows < sms and nvec <= 1024)
+         else 2 if nvec <= 512 else 4)
+    per = -(-nvec // r)
+    threads = -(-per // 32) * 32
+    return (f"{nvec} vectors as {r} a thread over {threads} threads "
+            f"({threads * r - nvec} vector slots idle)")
+
+
+def k1_timings(gen, rows, d):
+    """K1 plain and fused over ``rows`` x ``d`` bf16 rows (scale fp32, as
+    the model holds it), timed beside the plain versions, the library
+    calls and a ``copy_`` of the same bytes."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
+    scale = torch.ones(d, device="cuda")
+    wscale = scale.to(BF16)
+
+    def rms_lib(t, *_):
+        return torch.nn.functional.rms_norm(t, (d,), wscale, 1e-5)
+
+    def add_rms_lib(t, r, _s):  # two calls: the add, then the norm
+        return torch.nn.functional.rms_norm(t + r, (d,), wscale, 1e-5)
+
+    out = []
+    nbytes = 2 * rows * d * 2 + d * 4
+    sets = [(_randn(gen, (rows, d), BF16), scale)
+            for _ in range(_n_sets(nbytes))]
+    x = sets[0][0]
+    out.append(dict(
+        name="rmsnorm", shape=f"{rows}x{d} bf16",
+        check=(rms_ops.rmsnorm(x, scale), rmsnorm_ref(x, scale)),
+        ms=time_ms(rms_ops.rmsnorm, sets),
+        plain_ms=time_ms(rmsnorm_ref, sets),
+        library_ms=time_ms(rms_lib, sets),
+        device_ms=device_ms(rms_ops.rmsnorm, sets, "rmsnorm"),
+        library_device_ms=device_ms(rms_lib, sets),
+        library_call="F.rms_norm",
+        copy_device_ms=_copy_device_ms(nbytes, len(sets)),
+        bound=_bound(nbytes, 4 * rows * d, PEAK_FP32)))
+    nbytes = 4 * rows * d * 2 + d * 4
+    sets = [(_randn(gen, (rows, d), BF16), _randn(gen, (rows, d), BF16),
+             scale) for _ in range(_n_sets(nbytes))]
+    x, r, _ = sets[0]
+    out.append(dict(
+        name="add_rmsnorm", shape=f"{rows}x{d} bf16",
+        check=(rms_ops.add_rmsnorm(x, r, scale)[1],
+               add_rmsnorm_ref(x, r, scale)[1]),
+        ms=time_ms(rms_ops.add_rmsnorm, sets),
+        plain_ms=time_ms(add_rmsnorm_ref, sets),
+        library_ms=None, two_call_ms=time_ms(add_rms_lib, sets),
+        device_ms=device_ms(rms_ops.add_rmsnorm, sets, "rmsnorm"),
+        library_device_ms=device_ms(add_rms_lib, sets),
+        library_call="x + r, then F.rms_norm (two calls)",
+        copy_device_ms=_copy_device_ms(nbytes, len(sets)),
+        bound=_bound(nbytes, 5 * rows * d, PEAK_FP32)))
+    return out
+
+
+def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False):
+    """K3 at the last decode step of a ``t``-slot cache (pos t - 1), bf16,
+    timed beside its plain version and SDPA over the live positions;
+    prints its split plan, achieved bandwidth and (``by_split``) its
+    device ms with the positions cut into 1, 2, 4 and 8 splits."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    pos = t - 1
+    nbytes = 2 * bb * h * dh * 2 + 2 * bb * (pos + 1) * kv * dh * 2
+    sets = [(_randn(gen, (bb, h, dh), BF16),
+             _randn(gen, (bb, t, kv, dh), BF16),
+             _randn(gen, (bb, t, kv, dh), BF16))
+            for _ in range(_n_sets(nbytes))]
+    q, k, v = sets[0]
+
+    def da(q, k, v):
+        return da_ops.decode_attention(q, k, v, pos)
+
+    def da_plain(q, k, v):
+        return _decode_want(q, k, v, pos)
+
+    def da_lib(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k[:, :pos + 1].transpose(1, 2),
+            v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
+
+    # every kernel of a call
+    g = h // kv
+    n_split, rows = da_kernel.split_plan(bb, kv, g, pos,
+                                         da_kernel.sm_count(0))
+    tm = dict(
+        name="decode_attention",
+        shape=f"B{bb} T{t} pos{pos} H{h} KV{kv} Dh{dh} bf16",
+        check=(da(q, k, v), da_plain(q, k, v)),
+        ms=time_ms(da, sets), plain_ms=time_ms(da_plain, sets),
+        library_ms=time_ms(da_lib, sets),
+        device_ms=device_ms(da, sets),
+        library_device_ms=device_ms(da_lib, sets),
+        bound=_bound(nbytes, 4 * bb * h * dh * (pos + 1), PEAK_BF16))
+    rate = nbytes / tm["device_ms"] / 1e6
+    chunks = -(-g // da_kernel.HEADS_A_BLOCK)
+    # the same call cut into other numbers of splits: what the plan
+    # weighs (kernel.split_plan)
+    by = "" if not by_split else "; device ms at n_split " + ", ".join(
+        f"{n} {device_ms(lambda *x, n=n: _decode_split(*x, pos, n), sets):.4f}"
+        for n in (1, 2, 4, 8))
+    print(f"[4] decode_attention B{bb} pos{pos} H{h} KV{kv} (G {g}): "
+          f"n_split {n_split} of {rows} positions, grid ({kv * chunks}, "
+          f"{bb}, {n_split}) = {kv * chunks * bb * n_split} blocks of 256 "
+          f"threads in clusters of {n_split}, {g} of "
+          f"{chunks * da_kernel.HEADS_A_BLOCK} head rows a block live; "
+          f"{nbytes / 1e6:.2f} MB in {tm['device_ms']:.4f} device ms: "
+          f"{rate:.0f} GB/s, {100 * rate / (PEAK_BYTES / 1e9):.1f}% of 3.35 "
+          f"TB/s; SDPA {tm['library_device_ms']:.4f} device ms{by} [{smi}]")
+    return tm
+
+
+def two_layer_checks(arch) -> bool:
+    """Phase 5 for one config: its full width cut to 2 layers, on the card
+    through the kernels against the CPU through the plain versions (same
+    weights, bf16 within 2e-2); then its decode step replayed as a CUDA
+    graph against 16 eager greedy steps, logits and tokens bit for bit,
+    and the captured step's K1 and K3 nodes counted from the graph: one
+    K1 a norm (2 a block, the final one, and with QK-norm 2 more a block)
+    and one K3 a block."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference.engine import DecodeGraph
+    from repro_torch.inference.sampling import sample
+    from repro_torch.models.transformer import Model
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    cfg2 = cfg.scaled(n_layers=2)
+    card = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
+    cpu = Model(cfg2).load({n: p.cpu() for n, p in card.named_parameters()})
+    cpu_gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=cpu_gen)
+    steps = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=cpu_gen)
+    got, gcache = card.prefill(toks.cuda(), 68)
+    want, ccache = cpu.prefill(toks, 68)
+    errs, ok = [_err(got.cpu(), want)], _close(got.cpu(), want, BF16)
+    for tok in steps:
+        got, gcache = card.decode_step(gcache, tok.cuda())
+        want, ccache = cpu.decode_step(ccache, tok)
+        errs.append(_err(got.cpu(), want))
+        ok = ok and _close(got.cpu(), want, BF16)
+    ok = ok and bool(torch.isfinite(got).all())
+    print(f"[5] 2-layer {arch} width (d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads), card vs CPU: last-token logits max err "
+          f"prefill {errs[0]:.3g}, decode "
+          f"{', '.join(f'{e:.3g}' for e in errs[1:])} (bf16 tol 2e-2): "
+          f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    del cpu, ccache
+    # the same model's decode step replayed as a CUDA graph against 16
+    # eager greedy steps from the same prompt: logits and tokens bit for bit
+    graph = DecodeGraph(card, 2, 81)
+    prompt = toks.cuda()
+    logits, ecache = card.prefill(prompt, 81)
+    tok = sample(logits, vocab_size=cfg.vocab_size)
+    eager = []
+    for _ in range(16):
+        logits, ecache = card.decode_step(ecache, tok)
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+        eager.append((logits.clone(), tok))
+    logits, _ = card.prefill(prompt, cache=graph.cache)
+    graph.start(sample(logits, vocab_size=cfg.vocab_size))
+    same = []
+    for logits, tok in eager:
+        graph.replay()
+        same.append(torch.equal(graph.logits, logits)
+                    and torch.equal(graph.tok, tok))
+    names = graph.kernel_names()
+    nodes = tuple(sum(k in n for n in names) for k in ("rmsnorm",
+                                                       "decode_attn"))
+    want_nodes = ((2 + 2 * cfg.qk_norm) * cfg2.n_layers + 1, cfg2.n_layers)
+    okg = (all(same) and int(graph.cache.pos_t) == 64 + 16
+           and nodes == want_nodes)
+    print(f"[5] 2-layer {arch}, 16 graph replays against 16 eager steps: "
+          f"logits and tokens bit-equal at {sum(same)} of {len(same)} "
+          f"steps; the captured step's K1/K3 nodes {nodes}, expected "
+          f"{want_nodes}, of {len(names)} kernel nodes: "
+          f"{'ok' if okg else 'FAIL'}")
+    del card, gcache, graph, ecache
+    return ok and okg
+
+
+def full_depth_phase(smi):
+    """Phase 10: each newer dense config at full width and full depth,
+    seeded random weights, through ``measure_arch`` over phase [8]'s grid
+    (the graphed engine); each model, its caches and its decode graphs
+    freed before the next is drawn.  Returns (ok, {kernel: launches},
+    {arch: rows})."""
+    from repro_torch.bench.harness import measure_arch
+    from repro_torch.configs import get_config
+    from repro_torch.inference.engine import ServingEngine
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models.transformer import Model
+    counters = (rms_ops.rmsnorm, rms_ops.add_rmsnorm, fa_ops.flash_attention,
+                da_ops.decode_attention)
+    launches = {fn.__name__: 0 for fn in counters}
+    cells = (len(MEASURE_GRID["grid_ii"]) * len(MEASURE_GRID["grid_oo"])
+             * len(MEASURE_GRID["grid_bb"]))
+    ok, out = True, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[10] {held / 1e9:.2f} GB allocated on the card before the first "
+          f"model")
+    for arch in DENSE_NEW:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg).init(torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        weights, init_peak = (torch.cuda.memory_allocated(),
+                              torch.cuda.max_memory_allocated())
+        # the main path: counters zeroed just before, read just after
+        for fn in counters:
+            fn.launches = 0
+        t1 = time.perf_counter()
+        rows = measure_arch(arch, model=model, **MEASURE_GRID)
+        t_measure = time.perf_counter() - t1
+        grew = [fn.launches for fn in counters]
+        for fn in counters:
+            launches[fn.__name__] += fn.launches
+        # a decode step's time at the grid's largest decode cell
+        cell = (min(MEASURE_GRID["grid_ii"]), max(MEASURE_GRID["grid_oo"]),
+                max(MEASURE_GRID["grid_bb"]))
+        step = ServingEngine(model).generate(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (cell[2], cell[0])), cell[1]).decode_s \
+            / (cell[1] - 1)
+        # a cell: warm-up and reps prefills, one capture after one eager
+        # step; K1 plain once a forward (and qwen3's q/k norms), fused
+        # twice a block
+        n_l = cfg.n_layers
+        pre = 1 + MEASURE_GRID["reps"]
+        fwd = cells * (pre + 2)
+        expect = [(1 + 2 * n_l * cfg.qk_norm) * fwd, 2 * n_l * fwd,
+                  n_l * pre * cells, n_l * 2 * cells]
+        ii, oo, bb, thpt = rows.workload
+        good = (len(rows) == cells * MEASURE_GRID["reps"] and grew == expect
+                and bool(np.all(np.isfinite(thpt) & (thpt > 0)))
+                and set(rows["acc"]) == {"gpu-h100-sxm"})
+        ok = ok and good
+        print(f"[10] {arch}: {n_params / 1e9:.3f} B parameters "
+              f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.vocab_size}), weights {weights / 1e9:.2f} GB, peak "
+              f"while drawn {init_peak / 1e9:.2f} GB, init {t_init:.1f} s; "
+              f"measure_arch {len(rows)} rows in {t_measure:.1f} s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"thpt {thpt.min():.1f} to {thpt.max():.1f} tok/s; a graphed "
+              f"decode step at (ii, oo, bb) = {cell} {1e3 * step:.2f} ms "
+              f"[{smi}]")
+        for a in MEASURE_GRID["grid_ii"]:
+            for o in MEASURE_GRID["grid_oo"]:
+                m = (ii == a) & (oo == o)
+                print(f"[10]   {arch} (ii, oo) = ({a}, {o}): thpt at bb "
+                      f"{'/'.join(f'{b:g}' for b in bb[m])}: "
+                      f"{', '.join(f'{t:.1f}' for t in thpt[m])}")
+        print(f"[10] {arch} launches rmsnorm/add_rmsnorm/flash/decode: "
+              f"{grew}, expected {expect}: {'ok' if good else 'FAIL'}")
+        out[arch] = rows
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, launches, out
+
+
+def _k4_counters():
+    from repro_torch.core import fit, gbt
+    from repro_torch.kernels.gbt_hist import ops as gh_ops
+    return ((gh_ops.build_node_histograms, "launches"),
+            (gh_ops.split_level, "launches"), (gbt.grow_forests, "levels"),
+            (gbt._joint_histograms, "levels"), (fit._solve_padded, "solves"))
+
+
+def _zero_k4():
+    for fn, attr in _k4_counters():
+        setattr(fn, attr, 0)
+
+
+def _read_k4():
+    """(gbt_hist launches, gbt_split launches, levels grown on the card,
+    levels of the host loop, LM solves)."""
+    return tuple(getattr(fn, attr) for fn, attr in _k4_counters())
+
+
+def _rows_of(data, keys, combo):
+    arr = np.stack([data[k].astype(str) for k in keys], axis=1)
+    return data.mask(np.all(arr == np.asarray(combo), axis=1))
+
+
+def _relabel(data, acc):
+    from repro_torch.core.dataset import Dataset
+    return Dataset({**data.cols, "acc": np.full(len(data), acc)})
+
+
+def lm_checks(data, keys, card, cpu, device=None) -> dict:
+    """Phase 11's databases: the LM contract (``core.fit.lm_agreement``),
+    the card's curves at each group's batch sizes against the CPU's:
+    within 1e-3 relative where the CPU's fit has converged (within 1e-4
+    of the float64 optimum), elsewhere (the float32 LM stopped in a flat
+    valley after its 60 steps) within 2e-2, and fewer than a tenth of all
+    groups beyond 1e-3.  Then the controls, the LM on ``device`` (None:
+    the GPU) in bf16 and cut to 20 steps, which the same comparison must
+    refuse.  Returns {check: passed}."""
+    from repro_torch.core.database import exponential_groups
+    from repro_torch.core.expmodel import exp_model
+    from repro_torch.core.fit import (BEYOND_SHARE, CONVERGED_RTOL,
+                                      CURVE_RTOL, UNCONVERGED_RTOL, _pow2,
+                                      fit_exponential_groups, lm_agreement,
+                                      lm_optimum)
+    checks = {}
+    groups, got, want, pads = [], [], [], []
+    same_keys = list(card.combos) == list(cpu.combos)
+    for combo, cm in cpu.combos.items():
+        cdb = card.combos[combo].db
+        if cm.db is None or cdb is None:
+            same_keys = same_keys and cm.db is cdb
+            continue
+        uniq, kept, gs = exponential_groups(
+            *_rows_of(data, keys, combo).workload)
+        gkeys = [(float(uniq[g, 0]), float(uniq[g, 1])) for g in kept]
+        same_keys = same_keys and list(cdb.params) == list(cm.db.params) \
+            == gkeys
+        if not same_keys:
+            break
+        groups += gs
+        got += [cdb.params[k] for k in gkeys]
+        want += [cm.db.params[k] for k in gkeys]
+        pads += [_pow2(max(len(g[0]) for g in gs))] * len(gs)
+    t0 = time.perf_counter()
+    opt = lm_optimum(groups, max(pads, default=1)) if same_keys else None
+    opt_s = time.perf_counter() - t0
+    want = np.array(want)
+
+    def lm_gate(fits):
+        return lm_agreement(groups, fits, want, opt)
+
+    agree = lm_gate(np.array(got)) if same_keys else dict(ok=False)
+    checks["databases within the LM contract"] = same_keys and agree["ok"]
+    if same_keys:
+        flat = np.nonzero(agree["rel"] > CURVE_RTOL)[0]
+        ratios = [np.sum((exp_model(groups[i][0], *got[i]) - groups[i][1])
+                         ** 2) / np.sum((exp_model(groups[i][0], *want[i])
+                                         - groups[i][1]) ** 2)
+                  for i in flat]
+        print(f"[11] databases, card against CPU: {agree['n']} groups, "
+              f"{agree['converged']} converged (the CPU's curve within "
+              f"{CONVERGED_RTOL} of the float64 optimum, "
+              f"{opt_s:.1f} s on the host), worst converged gap "
+              f"{agree['worst_converged']!r} (limit {CURVE_RTOL}); "
+              f"beyond {CURVE_RTOL}: {agree['beyond']} (limit under "
+              f"{BEYOND_SHARE * agree['n']:.1f}), worst "
+              f"{agree['worst']!r} (limit {UNCONVERGED_RTOL}); "
+              f"their sums of squares card / CPU "
+              f"{min(ratios, default=1.0):.4f} to "
+              f"{max(ratios, default=1.0):.4f} (card lower at "
+              f"{sum(r < 1 for r in ratios)})")
+        # controls: the same comparison must refuse a wrong LM on the card
+        for name, wrong in (("bf16", dict(dtype=torch.bfloat16)),
+                            ("20 steps", dict(iters=20))):
+            bad = np.zeros_like(want)
+            for pad in sorted(set(pads)):
+                idx = [i for i, q in enumerate(pads) if q == pad]
+                bad[idx] = fit_exponential_groups(
+                    [groups[i] for i in idx], pad_to=pad, device=device,
+                    **wrong)
+            a = lm_gate(bad)
+            conv, rel = a["is_converged"], a["rel"]
+            checks[f"control: LM in {name} refused"] = not a["ok"]
+            print(f"[11] control, the card's LM in {name}: refused "
+                  f"{not a['ok']}; converged groups beyond "
+                  f"{CURVE_RTOL}: "
+                  f"{int((rel[conv] > CURVE_RTOL).sum())}, others "
+                  f"beyond {UNCONVERGED_RTOL}: "
+                  f"{int((rel[~conv] > UNCONVERGED_RTOL).sum())}"
+                  f", beyond {CURVE_RTOL} in all {a['beyond']}, "
+                  f"worst {a['worst']!r}")
+    return checks
+
+
+def registry_phase(smi, card_rows):
+    """Phase 11: Alg 4 on ``suite``'s 33 combinations and the card's five,
+    fitted on the card (one batched fit) and on the CPU; the card held to
+    the CPU and to the launches the batched design makes; then the card's
+    five combinations' uncertainty fits, their estimates and transfer to
+    hardware they were not measured on.  Returns (ok, {kernel: launches})."""
+    from repro_torch.bench.datasets import load_or_make
+    from repro_torch.core.annealing import median_ape
+    from repro_torch.core.fit import _pow2
+    from repro_torch.core.predictor import train_param_predictors
+    from repro_torch.core.registry import ModelRegistry
+    data = load_or_make("suite").concat(card_rows)
+    _zero_k4()
+    t0 = time.perf_counter()
+    card = ModelRegistry().fit(data)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    hist, split, levels, host_levels, solves = _read_k4()
+    launches = {"gbt_hist": hist, "gbt_split": split}
+    t0 = time.perf_counter()
+    cpu = ModelRegistry(device="cpu").fit(data)
+    cpu_s = time.perf_counter() - t0
+    keys = card._active_keys
+    classes = set()
+    for combo in card.combos:
+        ii, oo, _, _ = _rows_of(data, keys, combo).workload
+        _, counts = np.unique(np.stack([ii, oo], 1), axis=0,
+                              return_counts=True)
+        classes.add(_pow2(int(counts.max())))
+    n_live = sum(cm.predictor is not None for cm in card.combos.values())
+    want_levels = 150 * 5      # train_param_predictor's 150 trees, depth 4
+    checks = {f"launches: one grow_forests of {want_levels} levels for "
+              f"{n_live} combinations x 3 outputs, one LM solve a padding "
+              f"class ({len(classes)})": (
+                  hist == split == levels == want_levels
+                  and host_levels == 0 and solves == len(classes))}
+    print(f"[11] registry fit on {len(data)} rows, {len(card.combos)} "
+          f"combinations ({n_live} with a predictor): card {card_s:.3f} s, "
+          f"CPU {cpu_s:.3f} s; card launches gbt_hist {hist}, gbt_split "
+          f"{split}, levels grown on the card {levels}, by the host loop "
+          f"{host_levels}; LM solves {solves} (padding classes "
+          f"{sorted(classes)}) [{smi}]")
+    checks.update(lm_checks(data, keys, card, cpu))
+    # Alg 3 on the card from the CPU's databases: K4's trees
+    trainings = [cm.db.training if cm.predictor is not None else None
+                 for cm in cpu.combos.values()]
+    got = train_param_predictors(trainings)
+    want = train_param_predictors(trainings, device="cpu", use_kernel=True)
+    checks["Alg 3 trees = plain K4's"] = all(
+        (a is None) == (b is None) and (a is None or _same_trees(a, b))
+        for a, b in zip(got, want))
+    pc, pp = card.predict(data), cpu.predict(data)
+    m_card, m_cpu = median_ape(data["thpt"], pc), median_ape(data["thpt"], pp)
+    checks["medAPE"] = abs(m_card - m_cpu) <= ALA_TOL["medape"]
+    print(f"[11] medAPE on all rows: card {m_card!r}, CPU {m_cpu!r} "
+          f"(tolerance {ALA_TOL['medape']}); max relative prediction "
+          f"difference {float(np.max(np.abs(pc - pp) / pp))!r}")
+    # Alg 6-8 on the card's five combinations, default SAConfig
+    t0 = time.perf_counter()
+    card.fit_uncertainty(card_rows)
+    unc_s = time.perf_counter() - t0
+    err, d, conf = card.estimate(card_rows)
+    fitted = [c for c, cm in card.combos.items() if cm.ala is not None]
+    checks["estimates finite, confidence > 0"] = (
+        len(fitted) == 5 and bool(np.all(np.isfinite(err)))
+        and bool(np.all(conf > 0)) and bool(np.all(np.isfinite(d))))
+    print(f"[11] fit_uncertainty on the card's {len(fitted)} combinations: "
+          f"{unc_s:.1f} s; native estimates: error {float(err.min()):.3f} "
+          f"to {float(err.max()):.3f}%, confidence {float(conf.min()):.4f} "
+          f"to {float(conf.max()):.4f} [{smi}]")
+    hi = keys.index("acc")
+    for acc in ("gpu-a100-80g", "tpu-v4"):
+        moved = _relabel(card_rows, acc)
+        donors = {c: card.donor_for(c[:hi] + (acc,) + c[hi + 1:])
+                  for c in fitted}
+        e2, d2, c2 = card.estimate(moved, transfer=True)
+        good = (all(d == c for c, d in donors.items())
+                and bool(np.all(np.isfinite(e2))) and bool(np.all(c2 > 0))
+                and bool(np.all(c2 < conf)) and np.allclose(d2, d, rtol=1e-7))
+        checks[f"transfer to {acc}"] = good
+        print(f"[11] transfer to {acc}: donors the card's own "
+              f"combinations: {all(d == c for c, d in donors.items())}; "
+              f"confidence {float(c2.min()):.4f} to {float(c2.max()):.4f}, "
+              f"below native at every row: {bool(np.all(c2 < conf))}; d_min "
+              f"the native one: {np.allclose(d2, d, rtol=1e-7)}")
+    e3, d3, c3 = card.estimate(_relabel(card_rows, "gpu-unregistered"),
+                               transfer=True)
+    checks["unregistered hardware keeps the sentinel"] = bool(
+        np.all(np.isnan(e3)) and np.all(np.isinf(d3)) and np.all(c3 == 0))
+    print("[11] checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                      for k, v in checks.items()))
+    return all(checks.values()), launches
+
+
+def online_phase(smi, by_arch):
+    """Phase 12: ``OnlineALA`` on the card ingests the five models' rows in
+    two deltas (every cell's rep 0, then rep 1); after each, its
+    predictions bit for bit a fresh card registry's on ``full_data()``;
+    the gate quarantines a NaN row and an exact duplicate injected into the
+    second delta.  Returns (ok, {kernel: launches})."""
+    from repro_torch.core.annealing import SAConfig
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.online import OnlineALA, OnlineConfig
+    from repro_torch.core.registry import ModelRegistry
+    deltas = []
+    for rep in range(MEASURE_GRID["reps"]):
+        part = None
+        for rows in by_arch.values():
+            sub = rows[rep::MEASURE_GRID["reps"]]
+            part = sub if part is None else part.concat(sub)
+        deltas.append(part)
+    row = {k: v[0].item() if isinstance(v[0], np.generic) else v[0]
+           for k, v in deltas[1].cols.items()}
+    bad = [dict(row, thpt=float("nan")), dict(row)]   # NaN, duplicate
+    deltas[1] = deltas[1].concat(Dataset.from_rows(bad, require_finite=None))
+    online = OnlineALA(OnlineConfig(
+        sa=SAConfig(n_iters=ONLINE_SA["n_iters"]),
+        warm_iters=ONLINE_SA["warm_iters"], gate=True))
+    checks, launches = {}, {"gbt_hist": 0, "gbt_split": 0}
+    for i, delta in enumerate(deltas):
+        _zero_k4()
+        t0 = time.perf_counter()
+        rep = online.ingest(delta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hist, split = _read_k4()[:2]
+        launches["gbt_hist"] += hist
+        launches["gbt_split"] += split
+        full = online.full_data()
+        fresh = ModelRegistry().fit(full)
+        same = np.array_equal(online.predict(full), fresh.predict(full))
+        checks[f"ingest {i + 1}: predict bit-equal to a fresh fit"] = same
+        print(f"[12] ingest {i + 1}: {rep.n_rows} rows, {len(rep.changed)} "
+              f"combinations changed, {len(rep.refit)} refitted, "
+              f"{rep.n_quarantined} quarantined; registry {rep.registry_s:.3f}"
+              f" s, uncertainty {rep.uncertainty_s:.3f} s, wall {wall:.3f} s; "
+              f"K4 launches {hist} + {split}; predictions bit-equal to a "
+              f"fresh card registry on {len(full)} rows: {same} [{smi}]")
+    reasons = sorted(q.reason for q in online.quarantine)
+    checks["gate: the NaN row and the duplicate"] =         reasons == ["duplicate", "nonfinite"]
+    err, _, conf = online.estimate(online.full_data())
+    checks["estimates finite"] = bool(np.all(np.isfinite(err))
+                                      and np.all(conf > 0))
+    print(f"[12] quarantined {reasons}; SA budgets n_iters "
+          f"{ONLINE_SA['n_iters']}, warm_iters {ONLINE_SA['warm_iters']}; "
+          f"checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                  for k, v in checks.items()))
+    return all(checks.values()), launches
+
+
+def baselines_phase(smi, ala_medape):
+    """Phase 13: the Fig 7 baselines on ``inhouse`` 70/30 (seed 0) on the
+    card and on the CPU; the card's held-out medAPE within ALA_TOL of the
+    CPU's, its GBT baselines' and random forest's trees equal to the host
+    loop's over K4's plain histograms.  Returns (ok, {kernel: launches})."""
+    from repro_torch.bench.datasets import make_inhouse_dataset, train_test_split
+    from repro_torch.core.annealing import median_ape
+    from repro_torch.core.baselines import _stack, make_baselines
+    train, test = (d.workload for d in
+                   train_test_split(make_inhouse_dataset(), 0.3))
+    checks, launches = {}, {"gbt_hist": 0, "gbt_split": 0}
+    card, cpu = make_baselines(), make_baselines("cpu")
+    for name in card:
+        _zero_k4()
+        t0 = time.perf_counter()
+        card[name].fit(*train)
+        got = card[name].predict(*test[:3])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        hist, split, levels, host_levels, _ = _read_k4()
+        launches["gbt_hist"] += hist
+        launches["gbt_split"] += split
+        t0 = time.perf_counter()
+        want = cpu[name].fit(*train).predict(*test[:3])
+        cpu_s = time.perf_counter() - t0
+        m_card, m_cpu = median_ape(test[3], got), median_ape(test[3], want)
+        checks[f"{name} medAPE"] = abs(m_card - m_cpu) <= ALA_TOL["medape"]
+        trees = ""
+        model = card[name].model
+        if name != "linear_regression":
+            host = cpu[name].factory()
+            if hasattr(host, "kw"):
+                host.kw["use_kernel"] = True
+            else:
+                host.use_kernel = True
+            host.fit(_stack(*train[:3]), train[3])
+            members = getattr(model, "members_", [model])
+            same = all(_same_trees(a, b) for a, b in zip(
+                members, getattr(host, "members_", [host])))
+            checks[f"{name} trees = plain K4's"] = same
+            trees = (f"; K4 launches {hist} + {split}, levels on the card "
+                     f"{levels}, by the host loop {host_levels}; trees equal "
+                     f"to the host loop's over K4's plain histograms: {same}")
+        print(f"[13] {name}: held-out medAPE card {m_card!r}, CPU {m_cpu!r} "
+              f"(ALA {ala_medape!r}); fit + predict card {card_s:.3f} s, CPU "
+              f"{cpu_s:.3f} s{trees} [{smi}]")
+    print("[13] checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                      for k, v in checks.items()))
+    return all(checks.values()), launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on a GPU",
               file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.inference.engine import DecodeGraph, ServingEngine
-    from repro_torch.inference.sampling import sample
+    from repro_torch.inference.engine import ServingEngine
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -966,10 +1605,13 @@ def main() -> int:
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator("cuda").manual_seed(0)
     rms_c, add_c, sums = Checks("rmsnorm"), Checks("add_rmsnorm"), []
-    # the sweep of test_kernels.py, the main path's rows at d 4096, and a
-    # row that is not whole 16-byte vectors; scale fp32 and bf16
+    # the sweep of test_kernels.py, the main path's rows at d 4096, a row
+    # that is not whole 16-byte vectors, the newer configs' widths (a
+    # decode step's rows and a prefill's) and qwen3's q/k norms over rows
+    # of one head; scale fp32 and bf16
     for shape in ((8, 64), (3, 5, 128), (1, 256), (17, 96), (8, 4096),
-                  (32, 4096), (4096, 4096), (2, 33)):
+                  (32, 4096), (4096, 4096), (2, 33), QK_ROWS,
+                  *((r, d) for d in WIDTHS_NEW for r in (8, 2048))):
         for dt in (FP32, BF16):
             for sdt in (FP32, BF16):
                 x, r = _randn(gen, shape, dt), _randn(gen, shape, dt)
@@ -987,12 +1629,15 @@ def main() -> int:
         return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2), causal=causal).transpose(1, 2)
 
-    # the sweeps of test_kernels.py, the llama widths, and ragged S around
+    # the sweeps of test_kernels.py, the llama widths, the newer configs'
+    # heads (16, 24, 40, 64 over 8) at S 128 and 512, and ragged S around
     # the 64-row tiles at every head size
     for b, h, kv, s, dh in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
                             (1, 4, 1, 128, 128), (2, 6, 2, 64, 32),
                             (1, 4, 2, 50, 16), (2, 32, 8, 512, 128),
                             (2, 32, 8, 1000, 128),
+                            *((2, 8 * g, 8, s, 128) for g in GROUPS_NEW
+                              for s in (128, 512)),
                             *((2, 8, 2, s, dh)
                               for s in (1, 63, 65, 127, 129, 1000)
                               for dh in _build.HEAD_DIMS)):
@@ -1025,6 +1670,7 @@ def main() -> int:
     decode_cases = [(2, 8, 2, 128, 64), (1, 4, 4, 512, 128),
                     (4, 16, 8, 256, 64), (3, 4, 2, 77, 16)]
     decode_cases += [(b, 32, 8, t, 128) for b in (1, 8, 64) for t in (576, 2080)]
+    decode_cases += [(b, 8 * g, 8, 576, 128) for g in GROUPS_NEW for b in (1, 8)]
     for b, h, kv, t, dh in decode_cases:
         for frac in (0.1, 0.5, 1.0):
             for dt in (FP32, BF16):
@@ -1065,51 +1711,18 @@ def main() -> int:
     h, kv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
     table, timings = {}, []
     # K1, plain and fused, over the prefill's rows (both cells: 4,096) and
-    # one decode step's rows (8 and 32); scale fp32 as the model holds it
+    # one decode step's rows (8 and 32); scale fp32 as the model holds it;
+    # then a prefill's rows at the newer configs' widths and qwen3's q/k
+    # norms (one block a row of 128)
     rms_rows = sorted({r for ii, oo, bb in CELLS for r in (bb * ii, bb)},
                       reverse=True)
-    scale = torch.ones(d, device="cuda")
-    wscale = scale.to(BF16)
-
-    def rms_lib(t, *_):
-        return torch.nn.functional.rms_norm(t, (d,), wscale, 1e-5)
-
-    def add_rms_lib(t, r, _s):  # two calls: the add, then the norm
-        return torch.nn.functional.rms_norm(t + r, (d,), wscale, 1e-5)
-
-    for rows in rms_rows:
-        nbytes = 2 * rows * d * 2 + d * 4
-        sets = [(_randn(gen, (rows, d), BF16), scale)
-                for _ in range(_n_sets(nbytes))]
-        x = sets[0][0]
-        timings.append(dict(
-            name="rmsnorm", shape=f"{rows}x{d} bf16",
-            check=(rms_ops.rmsnorm(x, scale), rmsnorm_ref(x, scale)),
-            ms=time_ms(rms_ops.rmsnorm, sets),
-            plain_ms=time_ms(rmsnorm_ref, sets),
-            library_ms=time_ms(rms_lib, sets),
-            device_ms=device_ms(rms_ops.rmsnorm, sets, "rmsnorm"),
-            library_device_ms=device_ms(rms_lib, sets),
-            library_call="F.rms_norm",
-            copy_device_ms=_copy_device_ms(nbytes, len(sets)),
-            bound=_bound(nbytes, 4 * rows * d, PEAK_FP32)))
-        nbytes = 4 * rows * d * 2 + d * 4
-        sets = [(_randn(gen, (rows, d), BF16), _randn(gen, (rows, d), BF16),
-                 scale) for _ in range(_n_sets(nbytes))]
-        x, r, _ = sets[0]
-        timings.append(dict(
-            name="add_rmsnorm", shape=f"{rows}x{d} bf16",
-            check=(rms_ops.add_rmsnorm(x, r, scale)[1],
-                   add_rmsnorm_ref(x, r, scale)[1]),
-            ms=time_ms(rms_ops.add_rmsnorm, sets),
-            plain_ms=time_ms(add_rmsnorm_ref, sets),
-            library_ms=None, two_call_ms=time_ms(add_rms_lib, sets),
-            device_ms=device_ms(rms_ops.add_rmsnorm, sets, "rmsnorm"),
-            library_device_ms=device_ms(add_rms_lib, sets),
-            library_call="x + r, then F.rms_norm (two calls)",
-            copy_device_ms=_copy_device_ms(nbytes, len(sets)),
-            bound=_bound(nbytes, 5 * rows * d, PEAK_FP32)))
-        del sets
+    for rows, dd in ((*((r, d) for r in rms_rows), QK_ROWS,
+                      *((8192, w) for w in WIDTHS_NEW))):
+        timings += k1_timings(gen, rows, dd)
+    for dd in (QK_ROWS[1], *WIDTHS_NEW):
+        print(f"[4] K1 at d {dd} bf16: a prefill's rows "
+              f"{k1_plan(8192, dd)}; a decode step's 8 rows "
+              f"{k1_plan(8, dd)}")
     for ii, oo, bb in CELLS:
         # flash attention over the prompt, causal
         shp_q, shp_kv = (bb, ii, h, dh), (bb, ii, kv, dh)
@@ -1137,55 +1750,16 @@ def main() -> int:
             library_device_ms=device_ms(fa_lib, sets),
             bound=_bound(nbytes, 4 * bb * h * dh * ii * (ii + 1) // 2,
                          PEAK_BF16)))
-        # decode attention at the last step: the cache holds ii + oo - 1
-        t, pos = ii + oo, ii + oo - 1
-        nbytes = 2 * bb * h * dh * 2 + 2 * bb * (pos + 1) * kv * dh * 2
-        sets = [(_randn(gen, (bb, h, dh), BF16),
-                 _randn(gen, (bb, t, kv, dh), BF16),
-                 _randn(gen, (bb, t, kv, dh), BF16))
-                for _ in range(_n_sets(nbytes))]
-        q, k, v = sets[0]
-
-        def da(q, k, v):
-            return da_ops.decode_attention(q, k, v, pos)
-
-        def da_plain(q, k, v):
-            return _decode_want(q, k, v, pos)
-
-        def da_lib(q, k, v):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], k[:, :pos + 1].transpose(1, 2),
-                v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
-
-        # every kernel of a call
-        n_split, rows = da_kernel.split_plan(bb, kv, h // kv, pos,
-                                             da_kernel.sm_count(0))
-        tm = dict(
-            name="decode_attention",
-            shape=f"B{bb} T{t} pos{pos} H{h} KV{kv} Dh{dh} bf16",
-            check=(da(q, k, v), da_plain(q, k, v)),
-            ms=time_ms(da, sets), plain_ms=time_ms(da_plain, sets),
-            library_ms=time_ms(da_lib, sets),
-            device_ms=device_ms(da, sets),
-            library_device_ms=device_ms(da_lib, sets),
-            bound=_bound(nbytes, 4 * bb * h * dh * (pos + 1), PEAK_BF16))
-        rate = nbytes / tm["device_ms"] / 1e6
-        # the same call cut into other numbers of splits: what the plan
-        # weighs (kernel.split_plan)
-        by_split = ", ".join(
-            f"{n} {device_ms(lambda *t, n=n: _decode_split(*t, pos, n), sets):.4f}"
-            for n in (1, 2, 4, 8))
-        print(f"[4] decode_attention B{bb} pos{pos}: n_split {n_split} of "
-              f"{rows} positions, grid ({kv}, {bb}, {n_split}) = "
-              f"{kv * bb * n_split} blocks of 256 threads in clusters of "
-              f"{n_split}; {nbytes / 1e6:.2f} MB in {tm['device_ms']:.4f} "
-              f"device ms: {rate:.0f} GB/s, "
-              f"{100 * rate / (PEAK_BYTES / 1e9):.1f}% of 3.35 TB/s; device "
-              f"ms at n_split {by_split} [{smi}]")
-        timings.append(tm)
         del sets, q, k, v
+        # decode attention at the last step: the cache holds ii + oo - 1
+        timings.append(k3_timing(gen, bb, ii + oo, h, kv, dh, smi,
+                                 by_split=True))
+    # K3 at the newer configs' groups, at the first cell's decode step
+    ii, oo, bb = CELLS[0]
+    timings += [k3_timing(gen, bb, ii + oo, 8 * g, 8, dh, smi)
+                for g in GROUPS_NEW]
     timings += [k4_timing(rng, K4_MAIN), k4_timing(rng, K4_BIG),
-                split_timing()]
+                k4_timing(rng, K4_REG), split_timing()]
     ok4 = True
     for tm in timings:
         got, want = tm.pop("check")
@@ -1212,52 +1786,12 @@ def main() -> int:
     table["gbt_hist"]["err"] = max(table["gbt_hist"]["err"], k4_err)
     torch.cuda.empty_cache()
 
-    # -- 5. 2-layer llama width, card against CPU; graphed against eager ---
-    t0 = time.perf_counter()
-    cfg2 = cfg.scaled(n_layers=2)
-    card = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
-    cpu = Model(cfg2).load({n: p.cpu() for n, p in card.named_parameters()})
-    cpu_gen = torch.Generator().manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=cpu_gen)
-    steps = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=cpu_gen)
-    got, gcache = card.prefill(toks.cuda(), 68)
-    want, ccache = cpu.prefill(toks, 68)
-    errs, ok5 = [_err(got.cpu(), want)], _close(got.cpu(), want, BF16)
-    for tok in steps:
-        got, gcache = card.decode_step(gcache, tok.cuda())
-        want, ccache = cpu.decode_step(ccache, tok)
-        errs.append(_err(got.cpu(), want))
-        ok5 = ok5 and _close(got.cpu(), want, BF16)
-    ok5 = ok5 and bool(torch.isfinite(got).all())
-    print(f"[5] 2-layer llama3.1-8b width, card vs CPU: last-token logits "
-          f"max err prefill {errs[0]:.3g}, decode "
-          f"{', '.join(f'{e:.3g}' for e in errs[1:])} (bf16 tol 2e-2): "
-          f"{'ok' if ok5 else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
-    # the same model's decode step replayed as a CUDA graph against 16
-    # eager greedy steps from the same prompt: logits and tokens bit for bit
-    graph = DecodeGraph(card, 2, 81)
-    prompt = toks.cuda()
-    logits, ecache = card.prefill(prompt, 81)
-    tok = sample(logits, vocab_size=cfg.vocab_size)
-    eager = []
-    for _ in range(16):
-        logits, ecache = card.decode_step(ecache, tok)
-        tok = sample(logits, vocab_size=cfg.vocab_size)
-        eager.append((logits.clone(), tok))
-    logits, _ = card.prefill(prompt, cache=graph.cache)
-    graph.start(sample(logits, vocab_size=cfg.vocab_size))
-    same = []
-    for logits, tok in eager:
-        graph.replay()
-        same.append(torch.equal(graph.logits, logits)
-                    and torch.equal(graph.tok, tok))
-    ok5g = all(same) and int(graph.cache.pos_t) == 64 + 16
-    print(f"[5] 2-layer model, 16 graph replays against 16 eager steps: "
-          f"logits and tokens bit-equal at {sum(same)} of {len(same)} "
-          f"steps: {'ok' if ok5g else 'FAIL'}")
-    ok5 = ok5 and ok5g
-    del card, cpu, gcache, ccache, graph, ecache
-    torch.cuda.empty_cache()
+    # -- 5. 2-layer models at full width, card against CPU; graphed
+    # against eager -------------------------------------------------------
+    ok5 = True
+    for arch in (ARCH, *DENSE_NEW):
+        ok5 = two_layer_checks(arch) and ok5
+        torch.cuda.empty_cache()
 
     # -- 6. full width ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1388,14 +1922,15 @@ def main() -> int:
                       f"8 more replays by name: rmsnorm {traced[0]} of "
                       f"{8 * want[0]}, decode attention {traced[1]} of "
                       f"{8 * want[1]}: {'ok' if seen else 'FAIL'}")
-        del graph, cache
+        # the last fn is replay8, whose default holds the graph
+        del graph, cache, decode8, replay8, fn
 
     # -- 8. serving rows as ALA input --------------------------------------
     from repro_torch.bench.harness import measure_arch
     from repro_torch.core.annealing import median_ape
     from repro_torch.core.database import build_exponential_database, db_predict
     t0 = time.perf_counter()
-    rows = measure_arch(ARCH, model=model, **MEASURE_GRID)
+    rows = llama_rows = measure_arch(ARCH, model=model, **MEASURE_GRID)
     ii, oo, bb, thpt = rows.workload
     db = build_exponential_database(ii, oo, bb, thpt)
     pred = np.concatenate([db_predict(db, a, o, bb[(ii == a) & (oo == o)])
@@ -1416,17 +1951,46 @@ def main() -> int:
               f"{', '.join(f'{t:.1f}' for t in thpt[(ii == a) & (oo == o)])}")
     print(f"[8] Alg 2 fit medAPE on its own rows: "
           f"{median_ape(own, pred)!r}%: {'ok' if ok8 else 'FAIL'}")
-    del model, engine
+    del model, engine, logits
+    gc.collect()
     torch.cuda.empty_cache()
+    print(f"[8] {torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated "
+          f"after llama3.1-8b is freed")
 
     # -- 9. ALA on the card against the CPU ---------------------------------
     t0 = time.perf_counter()
-    ok9, k4_launches = ala_phase(smi)
+    ok9, k4_launches, ala_medape = ala_phase(smi)
     launches.update(k4_launches)
     print(f"[9] ALA phase: {'ok' if ok9 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # -- 10. result -----------------------------------------------------------
+    # -- 10. the newer dense configs at full width and depth ---------------
+    t0 = time.perf_counter()
+    ok10, grew, by_arch = full_depth_phase(smi)
+    for k, n in grew.items():
+        launches[k] += n
+    by_arch = {ARCH: llama_rows, **by_arch}
+    print(f"[10] full-depth phase: {'ok' if ok10 else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 11. Alg 4 on the card; 12. online refit; 13. Fig 7 baselines -------
+    card_rows = None
+    for rows in by_arch.values():
+        card_rows = rows if card_rows is None else card_rows.concat(rows)
+    results = {}
+    for tag, fn in (("[11] Alg 4", lambda: registry_phase(smi, card_rows)),
+                    ("[12] online", lambda: online_phase(smi, by_arch)),
+                    ("[13] baselines",
+                     lambda: baselines_phase(smi, ala_medape))):
+        t0 = time.perf_counter()
+        good, grew = fn()
+        for k, n in grew.items():
+            launches[k] += n
+        results[tag] = good
+        print(f"{tag} phase: {'ok' if good else 'FAIL'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 14. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
                "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -1451,20 +2015,17 @@ def main() -> int:
             library_device_ms=tm["library_device_ms"], shape=tm["shape"],
             **{k: tm[k] for k in ("library_call", "two_call_ms",
                                   "copy_device_ms") if k in tm}))
-    ok = (ok2 and ok3 and ok4 and ok5 and ok6 and ok7 and ok8 and ok9
-          and all(k["launches"] > 0 for k in kernels))
-    print(f"[10] phases: tensor-core gate {ok2}, kernels {ok3}, timing shapes "
-          f"{ok4}, 2-layer {ok5}, "
-          f"full width {ok6}, traces {ok7}, measure_arch {ok8}, ALA {ok9}; "
-          f"{time.perf_counter() - t_start:.0f} s in all")
+    phases = {"[2] tensor-core gate": ok2, "[3] kernels": ok3,
+              "[4] timing shapes": ok4, "[5] 2-layer": ok5,
+              "[6] full width": ok6, "[7] traces": ok7,
+              "[8] measure_arch": ok8, "[9] ALA": ok9,
+              "[10] full depth": ok10, **results,
+              "[14] launches": all(k["launches"] > 0 for k in kernels)}
+    ok = all(phases.values())
+    print(f"[14] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+          + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not ok:
-        failed = [name for name, good in (
-            ("[2] tensor-core gate", ok2), ("[3] kernels", ok3),
-            ("[4] timing shapes", ok4), ("[5] 2-layer", ok5),
-            ("[6] full width", ok6), ("[7] traces", ok7),
-            ("[8] measure_arch", ok8), ("[9] ALA", ok9),
-            ("[10] launches", all(k["launches"] > 0 for k in kernels)))
-            if not good]
+        failed = [name for name, good in phases.items() if not good]
         print(f"chip_smoke: FAILED: {', '.join(failed)}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}))

@@ -19,21 +19,28 @@ from repro_torch.core.dataset import Dataset
 from repro_torch.device import resolve_device
 from repro_torch.inference.engine import ServingEngine
 from repro_torch.models.transformer import Model
+from repro_torch.perfmodel.hardware import PROFILES
 
 CPU_GRID_II = (16, 32, 64)
 CPU_GRID_OO = (8, 16)
 CPU_GRID_BB = (1, 2, 4, 8, 16)
+H100 = "gpu-h100-sxm"
 PRECISIONS = {torch.bfloat16: "bf16", torch.float16: "fp16",
               torch.float32: "fp32"}
 
 
 def accelerator_name(device: torch.device) -> str:
-    """The hardware profile name a row carries: the reference's name for
-    an H100 (``perfmodel/hardware.py``), else what the device says."""
+    """The hardware profile name a row carries: a registered profile's
+    for an H100 (``perfmodel/hardware.py``, which Alg 4's transfer reads),
+    else what the device says."""
     if device.type == "cpu":
         return "cpu-host"
     name = torch.cuda.get_device_name(device)
-    return "gpu-h100-sxm" if "H100" in name else f"gpu-{name}"
+    if "H100" not in name:
+        return f"gpu-{name}"
+    if H100 not in PROFILES:
+        raise KeyError(f"{H100!r} is not a registered hardware profile")
+    return H100
 
 
 def measure_arch(arch: str, grid_ii: Optional[Sequence[int]] = None,

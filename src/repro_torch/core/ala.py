@@ -13,9 +13,10 @@ Every LM solve and GBT histogram build that an ``ALA`` starts runs on its
 ``device`` (the GPU unless the caller passes ``device="cpu"``), and so do
 the forest traversals and bank distances of the SA evaluator and
 ``estimate_batch``; ``predict`` and ``estimate`` keep the reference's
-serial host paths.  ``Registry``-level (Alg 4) training over
-hardware/software combinations is not ported yet (ROADMAP queue A); this
-class operates within one combination.
+serial host paths.  This class operates within one hardware/software
+combination; Alg 4 over many (``core/registry.py::ModelRegistry``) fits
+every combination's Alg 2 and Alg 3 in one batched pass and runs an
+``ALA`` per combination for the uncertainty stages.
 """
 from __future__ import annotations
 
@@ -150,8 +151,7 @@ class ALA:
     def refit(self, train, test, n_iters: Optional[int] = None,
               n_chains: Optional[int] = None) -> SALog:
         """Incremental re-fit after the training data changed (typically
-        rows appended by an online epoch; the online engine itself,
-        ``core/online.py``, is not ported yet).
+        rows appended by an online epoch of ``core/online.py``).
 
         When the new data is an append of the old (prefix-equal), every
         stage updates incrementally: the Alg 2 database re-solves only

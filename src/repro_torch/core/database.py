@@ -7,12 +7,12 @@ rows for the parameter predictor).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.expmodel import exp_model, initial_params
-from repro_torch.core.fit import fit_exponential_groups
+from repro_torch.core.fit import _pow2, fit_exponential_groups
 
 
 @dataclasses.dataclass
@@ -27,10 +27,10 @@ class ExpDatabase:
         return len(self.params)
 
 
-def build_exponential_database(ii, oo, bb, thpt, min_points: int = 1,
-                               device=None) -> Optional[ExpDatabase]:
-    """Alg 2: group by unique (ii, oo), percentile-init, batched LM fit
-    on ``device`` (None: the GPU)."""
+def exponential_groups(ii, oo, bb, thpt, min_points: int = 1):
+    """Alg 2's grouping: the unique (ii, oo) keys, lexicographic, the
+    indices of the groups with at least ``min_points`` rows, and those
+    groups as (bb, thpt, theta0) ready for ``fit_exponential_groups``."""
     ii = np.asarray(ii, np.float64)
     oo = np.asarray(oo, np.float64)
     bb = np.asarray(bb, np.float64)
@@ -48,10 +48,13 @@ def build_exponential_database(ii, oo, bb, thpt, min_points: int = 1,
         theta0 = initial_params(gb, gt)
         groups.append((gb, gt, theta0))
         kept.append(g)
-    if not groups:
-        return None
-    theta = fit_exponential_groups(groups, device=device)
-    # "optimization successful" filter: finite params + sane fit
+    return uniq, kept, groups
+
+
+def database_from_fit(uniq, kept, theta) -> Optional[ExpDatabase]:
+    """The database of the fitted groups: P and T in ``uniq``'s order,
+    dropping every group whose fit is not finite ("optimization
+    successful"); None when none is left."""
     params: Dict[Tuple[float, float], np.ndarray] = {}
     training = []
     for (g, th) in zip(kept, theta):
@@ -63,6 +66,46 @@ def build_exponential_database(ii, oo, bb, thpt, min_points: int = 1,
     if not training:
         return None
     return ExpDatabase(params=params, training=np.asarray(training))
+
+
+def build_exponential_database(ii, oo, bb, thpt, min_points: int = 1,
+                               device=None) -> Optional[ExpDatabase]:
+    """Alg 2: group by unique (ii, oo), percentile-init, batched LM fit
+    on ``device`` (None: the GPU)."""
+    return build_exponential_databases([(ii, oo, bb, thpt)], min_points,
+                                       device)[0]
+
+
+def build_exponential_databases(workloads, min_points: int = 1,
+                                device=None) -> List[Optional[ExpDatabase]]:
+    """Alg 2 for many sub-datasets at once (the registry's combinations):
+    each (ii, oo, bb, thpt) gets the database ``build_exponential_database``
+    gives it, bit for bit, from one batched LM solve per row padding.
+
+    A group's fit depends on its batch only through the padded row length
+    (``core.fit``: bit-identical whatever else shares the batch), and a
+    database built alone pads to the power of two above its largest group.
+    So the workloads are classed by that length, and every class is solved
+    in one call with all its groups."""
+    parts = [exponential_groups(*w, min_points=min_points)
+             for w in workloads]
+    classes: Dict[int, List[int]] = {}
+    for i, (_, _, groups) in enumerate(parts):
+        if groups:
+            pad = _pow2(max(len(g[0]) for g in groups))
+            classes.setdefault(pad, []).append(i)
+    thetas: Dict[int, np.ndarray] = {}
+    for pad, members in sorted(classes.items()):
+        theta = fit_exponential_groups(
+            [g for i in members for g in parts[i][2]], pad_to=pad,
+            device=device)
+        start = 0
+        for i in members:
+            n = len(parts[i][2])
+            thetas[i] = theta[start:start + n]
+            start += n
+    return [database_from_fit(uniq, kept, thetas[i]) if i in thetas
+            else None for i, (uniq, kept, _) in enumerate(parts)]
 
 
 def update_exponential_database(prev: Optional[ExpDatabase],

@@ -21,10 +21,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.expmodel import exp_model
 from repro_torch.device import resolve_device
 
 _LM_ITERS = 60
 _MU0 = 1e-2
+# the optimum a 60-step float32 fit is judged by: the same LM in float64
+# for 2,000 steps (2,000 and 4,000 agree within 3.2e-5 on suite's curves)
+_OPT_ITERS = 2000
+# lm_agreement's contract: curves within 1e-3 relative where converged
+# (within 1e-4 of the optimum), within 2e-2 elsewhere, and fewer than a
+# tenth of the groups beyond 1e-3
+CURVE_RTOL = 1e-3
+CONVERGED_RTOL = 1e-4
+UNCONVERGED_RTOL = 2e-2
+BEYOND_SHARE = 0.1
 
 
 def _row_sums(x: torch.Tensor) -> torch.Tensor:
@@ -71,12 +82,13 @@ def _residuals(a, b, c, x, y, w):
     return r, _row_sums(r * r), e
 
 
-def _fit_batch(theta0: torch.Tensor, x, y, w) -> torch.Tensor:
-    """(G, 3) float32 start + (G, m) float32 rows, m a power of two ->
-    (G, 3) float32 fitted (a, b, c)."""
+def _fit_batch(theta0: torch.Tensor, x, y, w,
+               iters: int = _LM_ITERS) -> torch.Tensor:
+    """(G, 3) start + (G, m) rows, m a power of two -> (G, 3) fitted
+    (a, b, c), in the inputs' dtype (float32 on Alg 2's path)."""
     a, b, c = theta0.unbind(1)
     mu = torch.full_like(a, _MU0)
-    for _ in range(_LM_ITERS):
+    for _ in range(iters):
         r, loss, e = _residuals(a, b, c, x, y, w)
         # analytic Jacobian of the residuals wrt (a, b, c)
         J = (-e * w, a[:, None] * x * e * w, w)
@@ -106,14 +118,23 @@ def _pow2(n: int, lo: int = 1) -> int:
     return max(lo, 1 << max(int(n) - 1, 0).bit_length())
 
 
-def _solve_padded(T0, X, Y, W, device) -> np.ndarray:
-    """float32 numpy rectangles -> float64 (G, 3) fit, on ``device``."""
+def _solve_padded(T0, X, Y, W, device, dtype=torch.float32,
+                  iters: int = _LM_ITERS) -> np.ndarray:
+    """float32 numpy rectangles -> float64 (G, 3) fit, on ``device``, the
+    LM run in ``dtype``.  ``_solve_padded.solves`` counts the batched
+    solves."""
     dev = resolve_device(device)
-    theta = _fit_batch(*(torch.from_numpy(a).to(dev) for a in (T0, X, Y, W)))
-    return theta.cpu().numpy().astype(np.float64)
+    theta = _fit_batch(*(torch.from_numpy(a).to(dev, dtype)
+                         for a in (T0, X, Y, W)), iters=iters)
+    _solve_padded.solves += 1
+    return theta.cpu().to(torch.float64).numpy()
 
 
-def fit_exponential_groups(groups, pad_to: int = 0, device=None):
+_solve_padded.solves = 0
+
+
+def fit_exponential_groups(groups, pad_to: int = 0, device=None,
+                           dtype=torch.float32, iters: int = _LM_ITERS):
     """Fit (a,b,c) for a list of (bb, thpt, theta0) ragged groups.
 
     Returns (G, 3) float64 array.  Groups are padded to the max length and
@@ -145,10 +166,50 @@ def fit_exponential_groups(groups, pad_to: int = 0, device=None):
         W[i, :n] = 1.0
         T0[i] = theta0 * np.array([1 / s, 1.0, 1 / s])
         scale[i] = s
-    theta = _solve_padded(T0, X, Y, W, device)[:G]
+    theta = _solve_padded(T0, X, Y, W, device, dtype, iters)[:G]
     theta[:, 0] *= scale
     theta[:, 2] *= scale
     return theta
+
+
+def lm_optimum(groups, pad_to: int = 0) -> np.ndarray:
+    """Each group's optimum, as ``lm_agreement`` reads convergence: the
+    same LM from the same start in float64 for 2,000 steps, on the CPU."""
+    return fit_exponential_groups(groups, pad_to, device="cpu",
+                                  dtype=torch.float64, iters=_OPT_ITERS)
+
+
+def lm_agreement(groups, got, want, opt, share=BEYOND_SHARE) -> dict:
+    """The LM contract between two 60-step fits of the same groups:
+    ``got`` (G, 3) held to ``want``, by their curves at each group's
+    batch sizes.
+
+    A group is converged where ``want``'s curve lies within
+    ``CONVERGED_RTOL`` of ``opt``'s (``lm_optimum``).  There ``got`` must
+    be within ``CURVE_RTOL`` relative.  Elsewhere the float32 LM has not
+    converged in its 60 steps, and two fits that differ only in rounding
+    stop at different points of a flat valley: ``got`` must be within
+    ``UNCONVERGED_RTOL``, and (unless ``share`` is None) fewer than
+    ``share`` of all groups may lie beyond ``CURVE_RTOL``.  Returns the
+    counts, the worst gaps and ``ok``."""
+    n = len(groups)
+    rel = np.zeros(n)
+    conv = np.zeros(n, bool)
+    for i, g in enumerate(groups):
+        x = np.unique(g[0])
+        w = exp_model(x, *want[i])
+        rel[i] = np.max(np.abs(exp_model(x, *got[i]) - w) / np.abs(w))
+        conv[i] = (np.max(np.abs(exp_model(x, *opt[i]) - w) / np.abs(w))
+                   <= CONVERGED_RTOL)
+    out = dict(n=n, converged=int(conv.sum()),
+               beyond=int((rel > CURVE_RTOL).sum()),
+               worst_converged=float(rel[conv].max(initial=0.0)),
+               worst=float(rel.max(initial=0.0)), rel=rel,
+               is_converged=conv)
+    out["ok"] = bool(out["worst_converged"] <= CURVE_RTOL
+                     and out["worst"] <= UNCONVERGED_RTOL
+                     and (share is None or out["beyond"] < share * n))
+    return out
 
 
 def fit_exponential_masked(theta0, X, Y, W, device=None):

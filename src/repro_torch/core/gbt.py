@@ -268,33 +268,47 @@ class MultiOutputGBT:
         self.models = [GBTRegressor(seed=seed + i, **kw)
                        for i in range(n_outputs)]
 
+    @property
+    def can_joint(self) -> bool:
+        """Whether ``fit_joint`` grows these forests: no row or column
+        sampling (it draws per model), and at least one output."""
+        return bool(self.models) and all(
+            m.subsample >= 1.0 and m.colsample >= 1.0 for m in self.models)
+
     def fit(self, X, Y, joint: Optional[bool] = None):
         Y = np.asarray(Y)
-        can_joint = all(m.subsample >= 1.0 and m.colsample >= 1.0
-                        for m in self.models)
-        if joint is None:
-            joint = can_joint
-        if not (joint and can_joint and len(self.models)):
+        if not (self.can_joint and joint is not False):
             for i, m in enumerate(self.models):
                 m.fit(X, Y[:, i])
             return self
+        self.take(self.fit_joint(np.asarray(X, np.float64)[None], Y[None]),
+                  0)
+        return self
+
+    def fit_joint(self, X, Y, W=None) -> "PackedForest":
+        """The forests of C problems at this model's settings, grown in
+        one ``fit_packed_forest`` call: X (C, n, f), Y (C, n, O), W (C, n)
+        row weights (padding rows 0).  ``take`` gives each its model."""
         m0 = self.models[0]
-        forest = fit_packed_forest(
-            np.asarray(X, np.float64)[None], Y[None],
-            n_estimators=m0.n_estimators, learning_rate=m0.learning_rate,
-            max_depth=m0.max_depth, n_bins=m0.n_bins,
-            min_child_weight=m0.min_child_weight, reg_lambda=m0.reg_lambda,
-            use_kernel=m0.use_kernel, device=m0.device)
+        return fit_packed_forest(
+            X, Y, W, n_estimators=m0.n_estimators,
+            learning_rate=m0.learning_rate, max_depth=m0.max_depth,
+            n_bins=m0.n_bins, min_child_weight=m0.min_child_weight,
+            reg_lambda=m0.reg_lambda, use_kernel=m0.use_kernel,
+            device=m0.device)
+
+    def take(self, forest: "PackedForest", c: int) -> "MultiOutputGBT":
+        """Adopt problem ``c``'s forests of a joint fit as this model's."""
         for o, m in enumerate(self.models):
-            m.base_ = float(forest.base[0, o])
-            m.bin_edges_ = forest.bin_edges[0].copy()
+            m.base_ = float(forest.base[c, o])
+            m.bin_edges_ = forest.bin_edges[c].copy()
             m.trees_ = [
-                _Tree(feature=forest.feature[0, o, t, :nn].copy(),
-                      threshold=forest.threshold[0, o, t, :nn].copy(),
-                      left=forest.left[0, o, t, :nn].copy(),
-                      right=forest.right[0, o, t, :nn].copy(),
-                      value=forest.value[0, o, t, :nn].copy())
-                for t, nn in enumerate(forest.n_nodes[0, o])]
+                _Tree(feature=forest.feature[c, o, t, :nn].copy(),
+                      threshold=forest.threshold[c, o, t, :nn].copy(),
+                      left=forest.left[c, o, t, :nn].copy(),
+                      right=forest.right[c, o, t, :nn].copy(),
+                      value=forest.value[c, o, t, :nn].copy())
+                for t, nn in enumerate(forest.n_nodes[c, o])]
             m._packed = None
         return self
 

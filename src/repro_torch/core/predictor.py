@@ -1,7 +1,7 @@
 """Parameter predictor (paper Alg 3) + throughput prediction (Alg 5)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -9,6 +9,19 @@ from repro_torch.core.database import ExpDatabase
 from repro_torch.core.expmodel import exp_model
 from repro_torch.core.features import engineer
 from repro_torch.core.gbt import MultiOutputGBT
+
+
+_DEFAULT_KW = dict(n_estimators=150, learning_rate=0.08, max_depth=4,
+                   n_bins=64)
+
+
+def _xy(training: np.ndarray):
+    """Alg 3's inputs of one training table: engineered (ii, oo)
+    features and the (a, log b, c) targets."""
+    X = engineer(training[:, 0], training[:, 1])
+    Y = training[:, 2:5].copy()
+    Y[:, 1] = np.log(np.maximum(Y[:, 1], 1e-10))
+    return X, Y
 
 
 def train_param_predictor(training: np.ndarray, device=None,
@@ -19,16 +32,43 @@ def train_param_predictor(training: np.ndarray, device=None,
     b is learned in log space (it spans decades and is positivity
     constrained) — a practical necessity the paper leaves implicit.
     """
-    if training is None or len(training) == 0:
-        return None
-    X = engineer(training[:, 0], training[:, 1])
-    Y = training[:, 2:5].copy()
-    Y[:, 1] = np.log(np.maximum(Y[:, 1], 1e-10))
-    kw = dict(n_estimators=150, learning_rate=0.08, max_depth=4, n_bins=64)
-    kw.update(gbt_kw)
-    model = MultiOutputGBT(3, device=device, **kw)
-    model.fit(X, Y)
-    return model
+    return train_param_predictors([training], device, **gbt_kw)[0]
+
+
+def train_param_predictors(trainings: Sequence[Optional[np.ndarray]],
+                           device=None,
+                           **gbt_kw) -> List[Optional[MultiOutputGBT]]:
+    """Alg 3 for many training tables (the registry's combinations), in
+    one joint fit; a table without rows gets None.
+
+    Every table's three output forests grow in one ``fit_packed_forest``
+    call (on the GPU: one ``grow_forests``, two K4 launches a tree level
+    for all of them).  Shorter tables are padded with rows of weight 0,
+    which leave the quantile edges, every histogram sum and so the trees
+    bit-equal to a fit of the table alone.  With row or column sampling
+    the tables are fitted one by one, as ``MultiOutputGBT.fit`` would."""
+    kw = dict(_DEFAULT_KW, **gbt_kw)
+    live = [i for i, t in enumerate(trainings)
+            if t is not None and len(t)]
+    out: List[Optional[MultiOutputGBT]] = [None] * len(trainings)
+    models = [MultiOutputGBT(3, device=device, **kw) for _ in live]
+    if not live:
+        return out
+    if not models[0].can_joint:
+        for i, m in zip(live, models):
+            out[i] = m.fit(*_xy(trainings[i]))
+        return out
+    data = [_xy(trainings[i]) for i in live]
+    n = max(len(X) for X, _ in data)
+    X = np.zeros((len(live), n, data[0][0].shape[1]))
+    Y = np.zeros((len(live), n, 3))
+    W = np.zeros((len(live), n))
+    for c, (x, y) in enumerate(data):
+        X[c, :len(x)], Y[c, :len(x)], W[c, :len(x)] = x, y, 1.0
+    forest = models[0].fit_joint(X, Y, W)
+    for c, (i, m) in enumerate(zip(live, models)):
+        out[i] = m.take(forest, c)
+    return out
 
 
 def predict_params(model: MultiOutputGBT, ii, oo) -> np.ndarray:

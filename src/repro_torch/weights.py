@@ -10,20 +10,29 @@ expects, so both packages compute with the same weights.
 Fitted ALA state has no device arrays in the reference: it is numpy
 arrays, dicts and frozensets on plain objects.  The ``*_from_reference``
 converters read those attributes (an ``ExpDatabase``, a ``GBTRegressor``
-with its ``_Tree``s, a ``PackedForest``, an ``SALog``, a ``SubsetBank``)
-and build the port's objects from copies, so both packages can be fed the
-same state at each stage.  Nothing here imports JAX or the reference.
+with its ``_Tree``s, a ``PackedForest``, an ``SALog``, a ``SubsetBank``,
+a fitted ``ModelRegistry`` with its combinations' ALAs, an ``OnlineALA``
+between two ingests) and build the port's objects from copies, so both packages can be fed the same state at
+each stage.  Nothing here imports JAX or the reference.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
 
-from repro_torch.core.annealing import SALog
+from repro_torch.core.ala import ALA, ALAConfig
+from repro_torch.core.annealing import SAConfig, SALog
 from repro_torch.core.database import ExpDatabase
-from repro_torch.core.gbt import GBTRegressor, PackedForest, _Tree
+from repro_torch.core.dataset import Dataset
+from repro_torch.core.gbt import (GBTRegressor, MultiOutputGBT, PackedForest,
+                                  _Tree)
+from repro_torch.core.online import (OnlineALA, OnlineConfig,
+                                     QuarantineRecord, _ComboState)
+from repro_torch.core.registry import ComboModel, ModelRegistry
 from repro_torch.core.uncertainty import SubsetBank
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -118,3 +127,87 @@ def subset_bank_from_reference(bank) -> SubsetBank:
         masks=_copy(bank.masks), subsets=[dict(s) for s in bank.subsets],
         universes={k: _copy(v) for k, v in bank.universes.items()},
         n_bins=int(bank.n_bins))
+
+
+def multi_output_gbt_from_reference(model, device=None) -> MultiOutputGBT:
+    """A fitted reference ``MultiOutputGBT`` (Alg 3) -> the port's."""
+    out = MultiOutputGBT(0)
+    out.models = [gbt_from_reference(m, device) for m in model.models]
+    return out
+
+
+def _sa_config(sa) -> SAConfig:
+    out = SAConfig(**{k: getattr(sa, k) for k in SAConfig.__dataclass_fields__})
+    out.gbt_kw = dict(out.gbt_kw)
+    return out
+
+
+def ala_from_reference(ala, device=None) -> ALA:
+    """A reference ``ALA`` after ``fit`` (and ``explore``, ``fit_error``,
+    ``bank`` where they ran) -> the port's, holding copies of its rows,
+    database, predictor, SA log, error model and bank."""
+    out = ALA(ALAConfig(gbt_kw=dict(ala.cfg.gbt_kw),
+                        sa=_sa_config(ala.cfg.sa)), device=device)
+    out._train = tuple(_copy(v) for v in ala._train)
+    if ala.db is not None:
+        out.db = exp_database_from_reference(ala.db)
+    if ala.predictor is not None:
+        out.predictor = multi_output_gbt_from_reference(ala.predictor, device)
+    if ala.sa_log is not None:
+        out.sa_log = sa_log_from_reference(ala.sa_log)
+    if ala.error_model is not None:
+        out.error_model = gbt_from_reference(ala.error_model, device)
+    if ala._bank is not None:
+        out._bank = subset_bank_from_reference(ala._bank)
+        out._bank_subsets = ala._bank_subsets
+    return out
+
+
+def registry_from_reference(reg, device=None, alas=None) -> ModelRegistry:
+    """A fitted reference ``ModelRegistry`` (Alg 4) -> the port's, on
+    ``device`` (None: the GPU): every combination's database and Alg 3
+    predictor and, where ``fit_uncertainty`` gave it one, its ALA.
+    ``alas`` maps ``id()`` of reference ALAs already converted to the
+    port's, so that an ALA shared with an ``OnlineALA`` stays one object."""
+    alas = {} if alas is None else alas
+    out = ModelRegistry(keys=reg.keys, device=device)
+    if hasattr(reg, "_active_keys"):
+        out._active_keys = tuple(reg._active_keys)
+    for combo, cm in reg.combos.items():
+        if cm.ala is not None and id(cm.ala) not in alas:
+            alas[id(cm.ala)] = ala_from_reference(cm.ala, device)
+        out.combos[combo] = ComboModel(
+            db=None if cm.db is None else exp_database_from_reference(cm.db),
+            predictor=None if cm.predictor is None else
+            multi_output_gbt_from_reference(cm.predictor, device),
+            ala=None if cm.ala is None else alas[id(cm.ala)])
+    return out
+
+
+def online_from_reference(eng, device=None) -> OnlineALA:
+    """A reference ``OnlineALA`` between two ingests -> the port's, on
+    ``device`` (None: the GPU): its config, registry, epoch, quarantine and
+    forced refits, and each combination's rows, eval membership, RNG,
+    ALA, fitted-row count and generation.  The next ingest of the same
+    delta then sees the same state on both sides."""
+    cfg = OnlineConfig(**{f.name: copy.deepcopy(getattr(eng.cfg, f.name))
+                          for f in dataclasses.fields(OnlineConfig)
+                          if f.name != "sa"})
+    cfg.sa = _sa_config(eng.cfg.sa)
+    alas: Dict[int, ALA] = {}
+    out = OnlineALA(cfg, registry_from_reference(eng.registry, device, alas))
+    out.epoch = eng.epoch
+    out.quarantine = [QuarantineRecord(q.epoch, q.combo, q.reason,
+                                       dict(q.row)) for q in eng.quarantine]
+    out._keys = eng._keys
+    out._forced = set(eng._forced)
+    out._seen = copy.deepcopy(eng._seen)
+    for combo, st in eng._state.items():
+        if st.ala is not None and id(st.ala) not in alas:
+            alas[id(st.ala)] = ala_from_reference(st.ala, device)
+        out._state[combo] = _ComboState(
+            data=Dataset({k: _copy(v) for k, v in st.data.cols.items()}),
+            test=_copy(st.test), rng=copy.deepcopy(st.rng),
+            ala=None if st.ala is None else alas[id(st.ala)],
+            fitted_rows=st.fitted_rows, generation=st.generation)
+    return out

@@ -643,3 +643,139 @@ def test_small_ala_launches_one_histogram_kernel_per_tree_level(cuda):
     grown = gbt.grow_forests.levels - grown_before
     assert gh_ops.build_node_histograms.launches - launches == grown > 0
     assert gh_ops.split_level.launches - splits == grown
+
+
+# -- the shapes of the four newer dense configs and Alg 4 ------------------
+@pytest.mark.parametrize("d", [128, 1024, 3072, 5120, 8192])
+@pytest.mark.parametrize("rows", [8, 300])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernels_at_the_served_widths(cuda, d, rows, dtype):
+    """K1 plain and fused at every width the five dense configs serve
+    (d_model 1024 to 8192, and qwen3's q/k norms over rows of d_head
+    128); the fused sum bit for bit ``x + r``."""
+    gen = torch.Generator(cuda).manual_seed(d)
+    x, r = (_randn(gen, (rows, d), dtype, cuda) for _ in range(2))
+    scale = _randn(gen, (d,), torch.float32, cuda)
+    torch.testing.assert_close(rms_ops.rmsnorm(x, scale),
+                               rmsnorm_ref(x, scale), **_tol(dtype))
+    (s, y), (s_want, y_want) = (rms_ops.add_rmsnorm(x, r, scale),
+                                add_rmsnorm_ref(x, r, scale))
+    assert torch.equal(s, s_want)
+    torch.testing.assert_close(y, y_want, **_tol(dtype))
+
+
+@pytest.mark.parametrize("g", [2, 3, 5, 8])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_at_other_groups(cuda, g, b, dtype):
+    """K3 at the GQA groups of qwen3 (16/8), llama3.2 (24/8), qwen2.5
+    (40/8) and command-r (64/8): groups 3 and 5 leave MMA rows empty, 8
+    fills a block."""
+    gen = torch.Generator(cuda).manual_seed(g)
+    h, kv, t, dh = 8 * g, 8, 576, 128
+    q = _randn(gen, (b, h, dh), dtype, cuda)
+    k = _randn(gen, (b, t, kv, dh), dtype, cuda)
+    v = _randn(gen, (b, t, kv, dh), dtype, cuda)
+    for pos in (0, 63, 300, t - 1):
+        got = da_ops.decode_attention(q, k, v, pos)
+        want = decode_attention_ref(q.reshape(b, kv, g, dh), k.transpose(1, 2),
+                                    v.transpose(1, 2), pos).reshape(b, h, dh)
+        torch.testing.assert_close(got, want, **_tol(dtype))
+
+
+def test_decode_attention_graph_at_group_3(cuda):
+    """One K3 launch at 24/8 heads captured and replayed at positions
+    across its splits, bit-equal to the eager call at each."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    b, h, kv, t, dh = 1, 24, 8, 2080, 128
+    q = _randn(gen, (b, h, dh), torch.bfloat16, cuda)
+    k = _randn(gen, (b, t, kv, dh), torch.bfloat16, cuda)
+    v = _randn(gen, (b, t, kv, dh), torch.bfloat16, cuda)
+    pos_t = torch.zeros(1, dtype=torch.int64, device=cuda)
+    da_ops.decode_attention(q, k, v, pos_t)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_ops.decode_attention(q, k, v, pos_t)
+    for pos in (0, 64, 319, 1000, 2079):
+        pos_t.fill_(pos)
+        graph.replay()
+        assert torch.equal(out, da_ops.decode_attention(q, k, v, pos)), pos
+
+
+def test_qwen3_decode_graph_lists_its_qk_norms(cuda):
+    """qwen3's captured step holds one K1 a norm: two a block, the final
+    one, and its q and k norms (two more a block)."""
+    from repro_torch.inference.engine import DecodeGraph
+    cfg = get_smoke_config("qwen3-0.6b").scaled(compute_dtype=torch.bfloat16)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    names = DecodeGraph(model, 2, 24).kernel_names()
+    assert sum("rmsnorm" in n for n in names) == 4 * cfg.n_layers + 1
+    assert sum("decode_attn" in n for n in names) == cfg.n_layers
+
+
+def _two_hardware_rows():
+    """Saturating rows of one model on two registered accelerators."""
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.expmodel import exp_model
+    rng = np.random.default_rng(0)
+    bbs = np.array([1, 2, 4, 8, 16, 32, 64], float)
+    rows = []
+    for acc, cap in (("tpu-v5e", 4000.0), ("gpu-h100-sxm", 9000.0)):
+        for ii in (128.0, 512.0, 1024.0):
+            for oo in (128.0, 256.0):
+                for bb, t in zip(bbs, exp_model(bbs, 0.9 * cap, 0.08, cap)):
+                    rows.append(dict(model="m", acc=acc, acc_count=1,
+                                     back="f", prec="bf16", mode="serve",
+                                     ii=ii, oo=oo, bb=bb,
+                                     thpt=t * rng.normal(1.0, 0.01)))
+    return Dataset.from_rows(rows)
+
+
+def test_registry_fit_is_one_batched_fit_on_the_card(cuda):
+    """Both combinations' Alg 2 in one LM solve (one padding class) and
+    their Alg 3 in one ``grow_forests``: n_estimators x (max_depth + 1)
+    levels, one launch of each K4 kernel a level."""
+    from repro_torch.core import fit, gbt
+    from repro_torch.core.registry import ModelRegistry
+    data = _two_hardware_rows()
+    counts = (fit._solve_padded.solves, gbt.grow_forests.levels,
+              gh_ops.build_node_histograms.launches,
+              gh_ops.split_level.launches, gbt._joint_histograms.levels)
+    reg = ModelRegistry().fit(data, n_estimators=12, max_depth=3)
+    assert len(reg.combos) == 2
+    assert (fit._solve_padded.solves - counts[0],
+            gbt.grow_forests.levels - counts[1],
+            gh_ops.build_node_histograms.launches - counts[2],
+            gh_ops.split_level.launches - counts[3],
+            gbt._joint_histograms.levels - counts[4]) == (1, 48, 48, 48, 0)
+
+
+def test_registry_on_the_card_matches_the_cpu(cuda):
+    """The card's databases within the LM contract of the CPU's (curves
+    1e-3 relative), its Alg 3 trees on the CPU's databases equal to the
+    host loop's over K4's plain histograms, predictions within 1e-3."""
+    from repro_torch.core.database import db_predict
+    from repro_torch.core.predictor import train_param_predictors
+    from repro_torch.core.registry import ModelRegistry
+    data = _two_hardware_rows()
+    card = ModelRegistry().fit(data, n_estimators=12)
+    cpu = ModelRegistry(device="cpu").fit(data, n_estimators=12)
+    assert list(card.combos) == list(cpu.combos)
+    for combo, cm in cpu.combos.items():
+        for key in cm.db.params:
+            x = np.array([1.0, 8.0, 64.0])
+            np.testing.assert_allclose(db_predict(card.combos[combo].db,
+                                                  *key, x),
+                                       db_predict(cm.db, *key, x), rtol=1e-3)
+    trainings = [cm.db.training for cm in cpu.combos.values()]
+    got = train_param_predictors(trainings, n_estimators=12)
+    want = train_param_predictors(trainings, device="cpu", use_kernel=True,
+                                  n_estimators=12)
+    for a, b in zip(got, want):
+        for ma, mb in zip(a.models, b.models):
+            for ta, tb in zip(ma.trees_, mb.trees_):
+                for k in ("feature", "threshold", "left", "right", "value"):
+                    assert np.array_equal(getattr(ta, k), getattr(tb, k)), k
+    np.testing.assert_allclose(card.predict(data), cpu.predict(data),
+                               rtol=1e-3)

@@ -17,13 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as jax_archs
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models.transformer import Model as JaxModel
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.config import FFN_MOE, MIXER_MAMBA, BlockSpec
@@ -31,6 +32,11 @@ from repro_torch.models.transformer import Model
 from repro_torch.weights import params_from_jax
 
 ARCH = "llama3.1-8b"
+PORTED = ("llama3.1-8b", "llama3.2-3b", "qwen2.5-32b", "command-r-35b",
+          "qwen3-0.6b")
+NOT_PORTED = ("llama4-maverick-400b-a17b", "phi3.5-moe-42b-a6.6b",
+              "jamba-1.5-large-398b", "xlstm-125m", "whisper-medium",
+              "internvl2-1b")
 B, S, N_DECODE = 2, 12, 4
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -42,14 +48,23 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def _pair(dtype_name):
+def _pair(dtype_name, arch=ARCH):
     """The smoke config in both packages, JAX params and the torch model
-    holding the same weights."""
+    holding the same weights.  QKV biases and QK-norm scales, which init
+    sets to 0 and 1, are drawn at random so that they count."""
     jdt, tdt = _DTYPES[dtype_name]
-    jcfg = jax_get_smoke_config(ARCH).scaled(compute_dtype=jdt)
-    tcfg = get_smoke_config(ARCH).scaled(compute_dtype=tdt)
+    jcfg = jax_get_smoke_config(arch).scaled(compute_dtype=jdt)
+    tcfg = get_smoke_config(arch).scaled(compute_dtype=tdt)
     jmodel = JaxModel(jcfg)
     params = jmodel.init(jax.random.key(0))
+    rng = np.random.default_rng(9)
+    for block in params["blocks"]:
+        for name, base in (("bq", 0.0), ("bk", 0.0), ("bv", 0.0),
+                           ("q_norm", 1.0), ("k_norm", 1.0)):
+            if name in block["attn"]:
+                a = block["attn"][name]
+                block["attn"][name] = jnp.asarray(
+                    base + 0.1 * rng.standard_normal(a.shape), a.dtype)
     tree = jax.tree.map(np.asarray, params)
     tmodel = Model(tcfg).load(params_from_jax(tree, tcfg, "cpu"))
     return jmodel, params, tmodel
@@ -60,10 +75,11 @@ def _tokens(seed, shape, vocab):
 
 
 # ------------------------------------------------------------------ configs --
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("which", ["full", "smoke"])
-def test_config_copies_every_field(which):
-    jcfg = (jax_get_config if which == "full" else jax_get_smoke_config)(ARCH)
-    tcfg = (get_config if which == "full" else get_smoke_config)(ARCH)
+def test_config_copies_every_field(which, arch):
+    jcfg = (jax_get_config if which == "full" else jax_get_smoke_config)(arch)
+    tcfg = (get_config if which == "full" else get_smoke_config)(arch)
     jf = {f.name for f in dataclasses.fields(jcfg)}
     assert jf == {f.name for f in dataclasses.fields(tcfg)}
     for name in jf - {"param_dtype", "compute_dtype", "period"}:
@@ -78,8 +94,11 @@ def test_config_copies_every_field(which):
 
 
 def test_other_archs_are_not_ported_yet():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen2.5-32b")
+    assert ARCHS == PORTED
+    for arch in NOT_PORTED:
+        with pytest.raises(KeyError, match="not ported"):
+            get_config(arch)
+    assert set(jax_archs) == set(PORTED) | set(NOT_PORTED)
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-2")
 
@@ -160,10 +179,10 @@ def test_attention_matches_jax(variant):
 
 
 # -------------------------------------------------------------- whole model --
-def _serve_both(dtype_name):
+def _serve_both(dtype_name, arch=ARCH):
     """Prefill plus N_DECODE teacher-forced decode steps in both packages.
     Returns the logits of each step and the final KV caches, as numpy."""
-    jmodel, params, tmodel = _pair(dtype_name)
+    jmodel, params, tmodel = _pair(dtype_name, arch)
     cfg = tmodel.cfg
     toks = _tokens(1, (B, S), cfg.vocab_size)
     steps = _tokens(2, (N_DECODE, B, 1), cfg.vocab_size)
@@ -194,6 +213,16 @@ def _serve_both(dtype_name):
 
 def test_prefill_and_decode_match_jax_fp32():
     (jl, jkv), (tl, tkv) = _serve_both("float32")
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+    for j, t in zip(jkv, tkv):
+        np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-32b"])
+def test_other_dense_archs_match_jax_fp32(arch):
+    """qwen3 (QK-norm, K1 over rows of one head; tied embeddings) and
+    qwen2.5 (QKV bias) at smoke size, fp32 at 1e-4."""
+    (jl, jkv), (tl, tkv) = _serve_both("float32", arch)
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
     for j, t in zip(jkv, tkv):
         np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
