@@ -6,11 +6,14 @@ quantile-binned features, per-node gradient/hessian histograms, gain
 shrinkage, row subsampling, and hessian-weighted leaves.  Level-wise
 growth, fully vectorized over nodes.  ``use_kernel`` chooses K4
 (``kernels/gbt_hist``; ``None``: K4 exactly when the model's ``device`` is
-CUDA).  On the GPU, ``grow_forests`` grows every tree on the card: each
-level is one launch of K4's histogram kernel for every node of every
-problem and one of its split step (split search, leaf values, tree
-entries, rows to their children, the boosting update), with no copy back
-to the host until the fit ends.  Elsewhere the host loop builds each
+CUDA).  On the GPU, ``grow_forests`` grows every tree on the card: a fit
+whose state fits a thread-block cluster's shared memory (every fit of the
+ALA's path) is one launch of K4's ``gbt_grow`` for all its trees and
+problems; a larger one takes two launches a level, K4's histograms for
+every node of every problem and its split step (split search, leaf
+values, tree entries, rows to their children, the boosting update).
+Either way nothing comes back to the host until the fit ends.  Elsewhere
+the host loop builds each
 level's histograms with ``_joint_histograms`` (K4's plain fp32 version, or
 the reference's float64 scatter-add) and searches the splits in float64
 numpy; with K4 it grows the same trees bit for bit as ``grow_forests``.
@@ -270,32 +273,47 @@ class MultiOutputGBT:
 
     @property
     def can_joint(self) -> bool:
-        """Whether ``fit_joint`` grows these forests: no row or column
-        sampling (it draws per model), and at least one output."""
+        """Whether ``fit_joint`` grows these forests in one joint fit: no
+        row or column sampling (it draws per model), and at least one
+        output."""
         return bool(self.models) and all(
             m.subsample >= 1.0 and m.colsample >= 1.0 for m in self.models)
 
     def fit(self, X, Y, joint: Optional[bool] = None):
         Y = np.asarray(Y)
-        if not (self.can_joint and joint is not False):
-            for i, m in enumerate(self.models):
-                m.fit(X, Y[:, i])
+        if joint is False:
+            self._fit_each(X, Y)
             return self
-        self.take(self.fit_joint(np.asarray(X, np.float64)[None], Y[None]),
-                  0)
+        self.fit_joint(np.asarray(X, np.float64)[None], Y[None])
         return self
 
-    def fit_joint(self, X, Y, W=None) -> "PackedForest":
-        """The forests of C problems at this model's settings, grown in
-        one ``fit_packed_forest`` call: X (C, n, f), Y (C, n, O), W (C, n)
-        row weights (padding rows 0).  ``take`` gives each its model."""
+    def _fit_each(self, X, Y) -> None:
+        for i, m in enumerate(self.models):
+            m.fit(X, Y[:, i])
+
+    def fit_joint(self, X, Y, W=None, into=None) -> List["MultiOutputGBT"]:
+        """Fits C problems at this model's settings, problem c into
+        ``into[c]`` (default: this model alone, C = 1), and returns
+        ``into``: X (C, n, f), Y (C, n, O), W (C, n) row weights (padding
+        rows 0).  Where ``can_joint`` holds, all grow in one
+        ``fit_packed_forest`` call; else each model fits its problem's rows
+        of weight > 0 one output at a time, as ``fit`` would."""
+        into = [self] if into is None else into
+        if not self.can_joint:
+            for c, m in enumerate(into):
+                keep = slice(None) if W is None else np.asarray(W[c]) > 0
+                m._fit_each(np.asarray(X[c])[keep], np.asarray(Y[c])[keep])
+            return into
         m0 = self.models[0]
-        return fit_packed_forest(
+        forest = fit_packed_forest(
             X, Y, W, n_estimators=m0.n_estimators,
             learning_rate=m0.learning_rate, max_depth=m0.max_depth,
             n_bins=m0.n_bins, min_child_weight=m0.min_child_weight,
             reg_lambda=m0.reg_lambda, use_kernel=m0.use_kernel,
             device=m0.device)
+        for c, m in enumerate(into):
+            m.take(forest, c)
+        return into
 
     def take(self, forest: "PackedForest", c: int) -> "MultiOutputGBT":
         """Adopt problem ``c``'s forests of a joint fit as this model's."""
@@ -560,18 +578,42 @@ def grow_forests(bins, y, w, base, n_estimators: int, learning_rate: float,
     2**(max_depth + 1) - 1, as ``_grow_forests_host`` with K4 grows them,
     bit for bit.
 
-    The inputs go to the device once; then every tree level is one
-    ``build_node_histograms`` and one ``split_level`` over all L problems,
-    at the level's full width 2**depth (nodes past a problem's valid ones
-    hold no rows), with no copy back and no synchronisation until the
-    trees come back at the end.  ``grow_forests.levels`` counts the levels
-    grown."""
+    The inputs go to the device once.  A fit that ``gh_ops.fits_on_chip``
+    accepts is one ``grow_fit`` (all its trees in one launch on the card);
+    any other grows level by level (``_grow_levels``).  Nothing comes back
+    and nothing synchronises until the trees come back at the end.
+    ``grow_forests.levels`` counts the tree levels grown either way,
+    ``grow_forests.fits`` the fits."""
     device = resolve_device(device)
     L, n, f = bins.shape
     s = gh_ops.GrowState.start(bins, y, w, base, n_estimators, max_depth,
                                device)
+    grow_forests.fits += 1
+    if gh_ops.fits_on_chip(L, n, f, n_bins, max_depth):
+        gh_ops.grow_fit(s, n_estimators, max_depth, n_bins, reg_lambda,
+                        min_child_weight, learning_rate)
+        grow_forests.levels += n_estimators * (max_depth + 1)
+    else:
+        _grow_levels(s, n_estimators, max_depth, n_bins, reg_lambda,
+                     min_child_weight, learning_rate)
+    trees = torch.stack([s.feature, s.threshold, s.left, s.right])
+    return (*trees.cpu().numpy(), s.value.cpu().numpy(),
+            s.n_nodes.cpu().numpy())
+
+
+grow_forests.levels = 0
+grow_forests.fits = 0
+
+
+def _grow_levels(s, n_estimators, max_depth, n_bins, reg_lambda,
+                 min_child_weight, learning_rate) -> None:
+    """``grow_forests`` level by level: every tree level is one
+    ``build_node_histograms`` and one ``split_level`` over all L problems
+    of the state ``s``, at the level's full width 2**depth (nodes past a
+    problem's valid ones hold no rows)."""
+    L, n, f = s.bins.shape
     hists = [torch.empty((L, 2 ** d, f, n_bins, 2), dtype=torch.float32,
-                         device=device) for d in range(max_depth + 1)]
+                         device=s.bins.device) for d in range(max_depth + 1)]
     for t in range(n_estimators):
         for depth, hist in enumerate(hists):
             gh_ops.build_node_histograms(s.bins, s.grad, s.hess, s.node,
@@ -579,12 +621,6 @@ def grow_forests(bins, y, w, base, n_estimators: int, learning_rate: float,
             gh_ops.split_level(hist, s, t, depth, max_depth, reg_lambda,
                                min_child_weight, learning_rate)
             grow_forests.levels += 1
-    trees = torch.stack([s.feature, s.threshold, s.left, s.right])
-    return (*trees.cpu().numpy(), s.value.cpu().numpy(),
-            s.n_nodes.cpu().numpy())
-
-
-grow_forests.levels = 0
 
 
 def fit_packed_forest(X, Y, W=None, n_estimators: int = 100,

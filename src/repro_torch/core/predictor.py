@@ -42,21 +42,18 @@ def train_param_predictors(trainings: Sequence[Optional[np.ndarray]],
     one joint fit; a table without rows gets None.
 
     Every table's three output forests grow in one ``fit_packed_forest``
-    call (on the GPU: one ``grow_forests``, two K4 launches a tree level
-    for all of them).  Shorter tables are padded with rows of weight 0,
-    which leave the quantile edges, every histogram sum and so the trees
+    call (on the GPU: one ``grow_forests``, one K4 ``gbt_grow`` launch for
+    all of them).  Shorter tables are padded with rows of weight 0, which
+    leave the quantile edges, every histogram sum and so the trees
     bit-equal to a fit of the table alone.  With row or column sampling
-    the tables are fitted one by one, as ``MultiOutputGBT.fit`` would."""
+    ``MultiOutputGBT.fit_joint`` fits the tables one by one, as
+    ``MultiOutputGBT.fit`` would."""
     kw = dict(_DEFAULT_KW, **gbt_kw)
     live = [i for i, t in enumerate(trainings)
             if t is not None and len(t)]
     out: List[Optional[MultiOutputGBT]] = [None] * len(trainings)
     models = [MultiOutputGBT(3, device=device, **kw) for _ in live]
     if not live:
-        return out
-    if not models[0].can_joint:
-        for i, m in zip(live, models):
-            out[i] = m.fit(*_xy(trainings[i]))
         return out
     data = [_xy(trainings[i]) for i in live]
     n = max(len(X) for X, _ in data)
@@ -65,9 +62,8 @@ def train_param_predictors(trainings: Sequence[Optional[np.ndarray]],
     W = np.zeros((len(live), n))
     for c, (x, y) in enumerate(data):
         X[c, :len(x)], Y[c, :len(x)], W[c, :len(x)] = x, y, 1.0
-    forest = models[0].fit_joint(X, Y, W)
-    for c, (i, m) in enumerate(zip(live, models)):
-        out[i] = m.take(forest, c)
+    for i, m in zip(live, models[0].fit_joint(X, Y, W, into=models)):
+        out[i] = m
     return out
 
 

@@ -1,8 +1,18 @@
-// K4: GBT training on the card, for sm_90a: the per-node gradient/hessian
-// histograms of one tree level, and the split step that grows the level
-// from them.  With the two, `core.gbt.grow_forests` grows whole forests on
-// the device, two launches a level, with no copy back to the host until
-// the fit ends.
+// K4: GBT training on the card, for sm_90a.  Three kernels:
+//
+//   gbt_grow   a whole fit in one launch: every tree of every problem,
+//              histograms, split search, leaf values, tree entries, row
+//              moves and the boosting update between trees, with the
+//              fit's state in shared memory for the whole fit;
+//   gbt_hist   the per-node gradient/hessian histograms of one tree level;
+//   gbt_split  the split step that grows the level from them.
+//
+// `core.gbt.grow_forests` calls gbt_grow for a fit whose state fits a
+// thread-block cluster's shared memory (`ops.fits_on_chip`: every fit of
+// the ALA's path, the registry's and the Fig 7 GBTs), and otherwise grows
+// the fit level by level, gbt_hist and gbt_split a level.  Both paths give
+// the same trees bit for bit: gbt_grow's arithmetic is gbt_hist's contract
+// and gbt_split's own device functions below.
 //
 // Replaces the TPU kernel `gbt_hist` (src/repro/kernels/gbt_hist/kernel.py,
 // pallas_call in `gbt_hist`, body `_hist_kernel`), which builds
@@ -58,12 +68,48 @@
 // with _rn intrinsics, so no FMA contracts it and the trees equal the host
 // loop's bit for bit.
 //
+// gbt_grow: one thread-block cluster per problem, the features split across
+// its blocks (`grow_plan`: at most 8 blocks, the portable cluster size, so
+// f <= 8 gives one feature a block and Alg 7's 24 three; fewer blocks when
+// the problems are many, so that every cluster is resident at once, as
+// cudaOccupancyMaxActiveClusters counts them on the card at hand: the
+// registry's 114 problems take 2 blocks of 4 features).  Each block holds
+// in shared memory, for the whole fit, a copy of the problem's rows (every
+// feature's bin id as a byte, node, grad, hess, pred) and, for feature 0 and
+// its own features, the rows sorted by bin (ids in row order, built once).
+// A level:
+//   1. thread (feature, bin) zeroes its cell of every valid node and walks
+//      the bin's rows in row order, adding each row's (g, h) into its
+//      node's cell: gbt_hist's contract, with no sort a level.  The loads
+//      of 8 rows go out together; each add is a load, add and store of the
+//      cell with no branch, since the lanes of a warp walk different bins
+//      and a branch a row would part them;
+//   2. one thread a valid node sums feature 0's bins (Gtot, Htot, the leaf
+//      value) in every block, so no block waits for another's totals;
+//   3. the block searches its own features with gbt_split's rounds and
+//      writes each node's best candidate into every block of the cluster
+//      through distributed shared memory (a buffer a level parity);
+//   4. one cluster barrier; then every block merges the candidates (a
+//      group of lanes a node, by shuffles) in the same total order,
+//      numbers the children with ballots, and moves its own copy of the
+//      rows, so the copies stay equal without a second barrier; block 0
+//      writes the tree entries.
+// The last level of a tree histograms feature 0 alone and takes no
+// barrier: its nodes are leaves.  After it every row in the fit takes its
+// next gradient (pred and y in float64) and returns to the root.  Block 0
+// writes the rows' state back once, at the end.
+//
 // Bound: a level moves a few kilobytes at the ALA's shapes, so each launch
 // is bound by its latency, not by bytes or operations; at n 8,192 the
 // histogram's bytes are some 0.36 MB (0.11 us at 3.35 TB/s), and its four
 // tiles run one after another within a block.  The split step is bound by
 // its per-thread chains (the cumsum, two float64 divisions a candidate),
-// on one SM per problem.
+// on one SM per problem.  gbt_grow removes the launches, the host's work
+// between them and the histograms' round trip through device memory; what
+// remains is latency: a level's critical path is the longest bin's row
+// walk, the search's per-thread chain and one cluster barrier
+// (`python -m repro_torch.bench.k4_grow` prints each part's share).
+#include <cooperative_groups.h>
 #include <limits.h>
 #include <math.h>
 
@@ -250,34 +296,52 @@ gbt_hist_kernel(const int* __restrict__ bins, const float* __restrict__ grad,
   }
 }
 
+
 // ---- the split step --------------------------------------------------
 constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_WARPS = SPLIT_THREADS / 32;
 constexpr int MAX_BINS = 128;     // numpy sums rows of up to 128 in one block
 constexpr int MAX_WIDTH = 256;    // nodes of one level: max_depth <= 8
 constexpr int STAGE = 4096;       // histogram cells (g, h) staged at once
 
-// np.sum over n <= 128 float64 values a[0], a[2], ..., a[2 (n - 1)] (one
-// component of a histogram row), in numpy's pairwise order, added to the
-// reduction's initial 0.0.
-__device__ double numpy_sum(const float* a, int n) {
-  double res;
+// np.sum over the n <= 128 float64 values of each component of a
+// histogram row a[0 .. n - 1] (the g and the h of every bin): (G, H), each
+// in numpy's pairwise order, added to the reduction's initial 0.0.  The two
+// sums run side by side.
+__device__ void numpy_sums(const float2* a, int n, double* G, double* H) {
+  double g, h;
   if (n < 8) {
-    res = 0.0;
-    for (int i = 0; i < n; ++i) res = __dadd_rn(res, a[2 * i]);
+    g = h = 0.0;
+    for (int i = 0; i < n; ++i) {
+      g = __dadd_rn(g, a[i].x);
+      h = __dadd_rn(h, a[i].y);
+    }
   } else {
-    double r[8];
+    double rg[8], rh[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) r[j] = a[2 * j];
+    for (int j = 0; j < 8; ++j) {
+      rg[j] = a[j].x;
+      rh[j] = a[j].y;
+    }
     int i = 8;
     for (; i < n - n % 8; i += 8) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) r[j] = __dadd_rn(r[j], a[2 * (i + j)]);
+      for (int j = 0; j < 8; ++j) {
+        rg[j] = __dadd_rn(rg[j], a[i + j].x);
+        rh[j] = __dadd_rn(rh[j], a[i + j].y);
+      }
     }
-    res = __dadd_rn(__dadd_rn(__dadd_rn(r[0], r[1]), __dadd_rn(r[2], r[3])),
-                    __dadd_rn(__dadd_rn(r[4], r[5]), __dadd_rn(r[6], r[7])));
-    for (; i < n; ++i) res = __dadd_rn(res, a[2 * i]);
+    g = __dadd_rn(__dadd_rn(__dadd_rn(rg[0], rg[1]), __dadd_rn(rg[2], rg[3])),
+                  __dadd_rn(__dadd_rn(rg[4], rg[5]), __dadd_rn(rg[6], rg[7])));
+    h = __dadd_rn(__dadd_rn(__dadd_rn(rh[0], rh[1]), __dadd_rn(rh[2], rh[3])),
+                  __dadd_rn(__dadd_rn(rh[4], rh[5]), __dadd_rn(rh[6], rh[7])));
+    for (; i < n; ++i) {
+      g = __dadd_rn(g, a[i].x);
+      h = __dadd_rn(h, a[i].y);
+    }
   }
-  return __dadd_rn(0.0, res);
+  *G = __dadd_rn(0.0, g);
+  *H = __dadd_rn(0.0, h);
 }
 
 // numpy argmax's order of candidates: a NaN first, the lower flat index
@@ -288,6 +352,132 @@ __device__ __forceinline__ bool better(double g, int i, double bg, int bi) {
   if (nan != bnan) return nan;
   if (!nan && g != bg) return g > bg;
   return i < bi;
+}
+
+// a node's leaf value, float32(-G / (H + lambda))
+__device__ __forceinline__ float leaf_value(double G, double H, double lam) {
+  return __double2float_rn(__ddiv_rn(-G, __dadd_rn(H, lam)));
+}
+
+// a row's prediction after its leaf: pred + float32(lr) * leaf, the product
+// in float32
+__device__ __forceinline__ double add_leaf(double p, float lr, float leaf) {
+  return __dadd_rn(p, static_cast<double>(__fmul_rn(lr, leaf)));
+}
+
+// a node splits on its best candidate where the gain is finite and above
+// 1e-12
+__device__ __forceinline__ bool splits(double gain) {
+  return isfinite(gain) && gain > 1e-12;
+}
+
+// The valid nodes of a level of `width` nodes whose first node is `first`,
+// as the level asks for `asked`: none where the level would not fit the
+// tree of N nodes (a caller's mistake), so that no write falls outside it.
+// A level's children take ids below first + 3 * asked.
+__device__ __forceinline__ int level_nodes(int first, int asked, int width,
+                                           bool last, int N) {
+  return first >= 0 && asked >= 0 && asked <= width &&
+                 first + (last ? 1 : 3) * asked <= N
+             ? asked
+             : 0;
+}
+
+// One round of the split search.  The round holds `rows` (node, feature)
+// histogram rows of n_bins (g, h) cells, items r0 .. r0 + rows - 1 of a
+// level's node-major list of `nf` features a node (item i: node i / nf,
+// feature k0 + i % nf); `row_of(il)` points at the round's row il.  Each
+// row's bins are cut into `parts` runs, thread part * rows + il taking run
+// `part` of row il: it repeats the sequential float64 cumsum up to its run
+// (so its GL and HL are np.cumsum's), computes the gain of
+// fit_packed_forest for each bin and keeps its best by `better`.  A warp per
+// node then merges the round's runs into the node's best so far (s_gain,
+// s_idx).  The caller has the rows, s_G and s_H ready and s_rg, s_ri free.
+template <typename RowOf>
+__device__ void search_round(RowOf row_of, int r0, int rows, int nf, int k0,
+                             int n_bins, const double* s_G,
+                             const double* s_H, double lam, double mcw,
+                             double* s_rg, int* s_ri, double* s_gain,
+                             int* s_idx) {
+  const int parts = min(n_bins, max(1, SPLIT_THREADS / rows));
+  const int run = (n_bins + parts - 1) / parts;
+  const int part = threadIdx.x / rows;
+  const int il = threadIdx.x - part * rows;
+  double bg = -INFINITY;
+  int bi = INT_MAX;
+  if (part < parts) {
+    const int j = (r0 + il) / nf;
+    const int k = k0 + r0 + il - j * nf;
+    const float2* row = row_of(il);
+    const double G = s_G[j];
+    const double H = s_H[j];
+    const double C = __ddiv_rn(__dmul_rn(G, G), __dadd_rn(H, lam));
+    double GL = row[0].x;  // np.cumsum's order, so GL and HL are its
+    double HL = row[0].y;
+    auto candidate = [&](int b) {
+      const double GR = __dsub_rn(G, GL);
+      const double HR = __dsub_rn(H, HL);
+      // every candidate's gain is computed, so no branch keeps the
+      // divisions of neighbouring bins apart; masked ones are -inf
+      const double a = __ddiv_rn(__dmul_rn(GL, GL), __dadd_rn(HL, lam));
+      const double c = __ddiv_rn(__dmul_rn(GR, GR), __dadd_rn(HR, lam));
+      const double v = __dmul_rn(0.5, __dsub_rn(__dadd_rn(a, c), C));
+      const bool ok = HL >= mcw && HR >= mcw && b < n_bins - 1;
+      const double gain = ok ? v : -INFINITY;
+      if (better(gain, k * n_bins + b, bg, bi)) {
+        bg = gain;
+        bi = k * n_bins + b;
+      }
+    };
+    const int b0 = part * run;
+    const int b1 = min(n_bins, b0 + run);
+    if (b0 < b1) {
+#pragma unroll 8
+      for (int b = 1; b < b0; ++b) {
+        GL = __dadd_rn(GL, row[b].x);
+        HL = __dadd_rn(HL, row[b].y);
+      }
+      if (b0 == 0) candidate(0);
+#pragma unroll 4
+      for (int b = max(b0, 1); b < b1; ++b) {
+        GL = __dadd_rn(GL, row[b].x);
+        HL = __dadd_rn(HL, row[b].y);
+        candidate(b);
+      }
+    }
+  }
+  s_rg[threadIdx.x] = bg;
+  s_ri[threadIdx.x] = bi;
+  __syncthreads();
+  // merge the round into each node's best, one warp per node
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int j = r0 / nf + warp; j <= (r0 + rows - 1) / nf; j += SPLIT_WARPS) {
+    const int i0 = max(r0, j * nf) - r0;  // the node's rows in the round
+    const int cnt = min(r0 + rows, (j + 1) * nf) - r0 - i0;
+    double mg = s_gain[j];
+    int mi = s_idx[j];
+    for (int q = lane; q < cnt * parts; q += 32) {
+      const int u = (q / cnt) * rows + i0 + q % cnt;
+      if (better(s_rg[u], s_ri[u], mg, mi)) {
+        mg = s_rg[u];
+        mi = s_ri[u];
+      }
+    }
+#pragma unroll
+    for (int d = 16; d; d >>= 1) {
+      const double og = __shfl_down_sync(FULL, mg, d);
+      const int oi = __shfl_down_sync(FULL, mi, d);
+      if (better(og, oi, mg, mi)) {
+        mg = og;
+        mi = oi;
+      }
+    }
+    if (lane == 0) {
+      s_gain[j] = mg;
+      s_idx[j] = mi;
+    }
+  }
 }
 
 // Copies `rows` histogram rows of n_bins (g, h) cells, the first at `src`
@@ -326,15 +516,8 @@ gbt_split_kernel(const float2* __restrict__ hist, const int* __restrict__ bins,
   __shared__ int s_ri[SPLIT_THREADS];
   const int l = blockIdx.x;
   const int first = level[2 * l];
-  // a level that does not fit `width` and the tree (a caller's mistake)
-  // touches no memory out of bounds: it grows no node.  A level's children
-  // take ids below first + 3 * n_valid.
-  const int asked = level[2 * l + 1];
   const int n_valid =
-      first >= 0 && asked >= 0 && asked <= width &&
-              first + (last ? 1 : 3) * asked <= N
-          ? asked
-          : 0;
+      level_nodes(first, level[2 * l + 1], width, last, N);
   const int64_t tree = (static_cast<int64_t>(l) * T + t) * N;
   // staged rows lie an odd number of cells apart, so that the threads of
   // a warp, each on its own row, read from different banks
@@ -351,107 +534,28 @@ gbt_split_kernel(const float2* __restrict__ hist, const int* __restrict__ bins,
     __syncthreads();
     const int j = j0 + threadIdx.x;
     if (threadIdx.x < rows) {
-      const float* row = reinterpret_cast<const float*>(
-          s_hist + threadIdx.x * stride);
-      const double G = numpy_sum(row, n_bins);
-      const double H = numpy_sum(row + 1, n_bins);
+      double G, H;
+      numpy_sums(s_hist + threadIdx.x * stride, n_bins, &G, &H);
       s_G[j] = G;
       s_H[j] = H;
-      s_leaf[j] = __double2float_rn(__ddiv_rn(-G, __dadd_rn(H, lam)));
+      s_leaf[j] = leaf_value(G, H, lam);
       s_gain[j] = -INFINITY;
       s_idx[j] = INT_MAX;
     }
   }
   // every (node, feature) walks its bins, node-major, a round of rows at a
-  // time; each row's bins are cut into `parts` runs, and thread
-  // part * rows + i takes run `part` of the round's row i
+  // time
   const int items = last ? 0 : n_valid * f;
   for (int r0 = 0; r0 < items; r0 += per_round) {
     const int rows = min(per_round, items - r0);
-    const int parts = min(n_bins, max(1, SPLIT_THREADS / rows));
-    const int run = (n_bins + parts - 1) / parts;
     __syncthreads();  // the stage and the round's candidates are free
     stage_rows(s_hist, stride, hl + static_cast<int64_t>(r0) * n_bins, n_bins,
                rows, n_bins);
     __syncthreads();
-    const int part = threadIdx.x / rows;
-    const int il = threadIdx.x - part * rows;
-    double bg = -INFINITY;
-    int bi = INT_MAX;
-    if (part < parts) {
-      const int j = (r0 + il) / f;
-      const int k = r0 + il - j * f;
-      const float2* row = s_hist + il * stride;
-      const double G = s_G[j];
-      const double H = s_H[j];
-      const double C = __ddiv_rn(__dmul_rn(G, G), __dadd_rn(H, lam));
-      double GL = row[0].x;  // np.cumsum's order, so GL and HL are its
-      double HL = row[0].y;
-      auto candidate = [&](int b) {
-        const double GR = __dsub_rn(G, GL);
-        const double HR = __dsub_rn(H, HL);
-        // every candidate's gain is computed, so no branch keeps the
-        // divisions of neighbouring bins apart; masked ones are -inf
-        const double a = __ddiv_rn(__dmul_rn(GL, GL), __dadd_rn(HL, lam));
-        const double c = __ddiv_rn(__dmul_rn(GR, GR), __dadd_rn(HR, lam));
-        const double v = __dmul_rn(0.5, __dsub_rn(__dadd_rn(a, c), C));
-        const bool ok = HL >= mcw && HR >= mcw && b < n_bins - 1;
-        const double gain = ok ? v : -INFINITY;
-        if (better(gain, k * n_bins + b, bg, bi)) {
-          bg = gain;
-          bi = k * n_bins + b;
-        }
-      };
-      const int b0 = part * run;
-      const int b1 = min(n_bins, b0 + run);
-      if (b0 < b1) {
-#pragma unroll 8
-        for (int b = 1; b < b0; ++b) {
-          GL = __dadd_rn(GL, row[b].x);
-          HL = __dadd_rn(HL, row[b].y);
-        }
-        if (b0 == 0) candidate(0);
-#pragma unroll 4
-        for (int b = max(b0, 1); b < b1; ++b) {
-          GL = __dadd_rn(GL, row[b].x);
-          HL = __dadd_rn(HL, row[b].y);
-          candidate(b);
-        }
-      }
-    }
-    s_rg[threadIdx.x] = bg;
-    s_ri[threadIdx.x] = bi;
-    __syncthreads();
-    // merge the round into each node's best, one warp per node
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    for (int j = r0 / f + warp; j <= (r0 + rows - 1) / f;
-         j += SPLIT_THREADS / 32) {
-      const int i0 = max(r0, j * f) - r0;  // the node's rows in the round
-      const int cnt = min(r0 + rows, (j + 1) * f) - r0 - i0;
-      double mg = s_gain[j];
-      int mi = s_idx[j];
-      for (int q = lane; q < cnt * parts; q += 32) {
-        const int u = (q / cnt) * rows + i0 + q % cnt;
-        if (better(s_rg[u], s_ri[u], mg, mi)) {
-          mg = s_rg[u];
-          mi = s_ri[u];
-        }
-      }
-#pragma unroll
-      for (int d = 16; d; d >>= 1) {
-        const double og = __shfl_down_sync(FULL, mg, d);
-        const int oi = __shfl_down_sync(FULL, mi, d);
-        if (better(og, oi, mg, mi)) {
-          mg = og;
-          mi = oi;
-        }
-      }
-      if (lane == 0) {
-        s_gain[j] = mg;
-        s_idx[j] = mi;
-      }
-    }
+    const float2* stage = s_hist;
+    search_round([stage, stride](int il) { return stage + il * stride; }, r0,
+                 rows, f, 0, n_bins, s_G, s_H, lam, mcw, s_rg, s_ri, s_gain,
+                 s_idx);
   }
   __syncthreads();
   // number the children in node order and write the tree
@@ -459,9 +563,8 @@ gbt_split_kernel(const float2* __restrict__ hist, const int* __restrict__ bins,
     const int next = first + n_valid;
     int k = 0;
     for (int j = 0; j < n_valid; ++j) {
-      const double g = s_gain[j];
       const int64_t at = tree + first + j;
-      if (!last && isfinite(g) && g > 1e-12) {
+      if (!last && splits(s_gain[j])) {
         s_base[j] = 2 * k;
         feature[at] = s_idx[j] / n_bins;
         threshold[at] = s_idx[j] % n_bins;
@@ -495,7 +598,7 @@ gbt_split_kernel(const float2* __restrict__ hist, const int* __restrict__ bins,
         const int thr = s_idx[nd] % n_bins;
         nd = base + (bins[i * f + k] > thr ? 1 : 0);
       } else {
-        p = __dadd_rn(p, static_cast<double>(__fmul_rn(lr, s_leaf[nd])));
+        p = add_leaf(p, lr, s_leaf[nd]);
         pred[i] = p;
         nd = -1;
       }
@@ -507,6 +610,442 @@ gbt_split_kernel(const float2* __restrict__ hist, const int* __restrict__ bins,
     }
     node[i] = nd;
   }
+}
+
+// ---- a whole fit in one launch ------------------------------------------
+constexpr int GROW_THREADS = SPLIT_THREADS;  // search_round's block
+constexpr int GROW_WARPS = GROW_THREADS / 32;
+constexpr int GROW_BLOCKS_SM = 2;    // the registers are cut for 2 an SM
+constexpr int MAX_CLUSTER = 8;       // the portable cluster size
+constexpr int MAX_ROWS = 65535;      // row ids are 16-bit
+constexpr int MAX_DEPTH = 8;
+constexpr int WALK = 8;              // rows a histogram thread loads at once
+
+// Built with -DGBT_GROW_PROFILE (bench/k4_grow.py), thread 0 of block 0
+// adds the clock cycles of each part of the fit into g_grow_profile: 0
+// set-up, 1 histograms, 2 totals, 3 search, 4 candidates and the cluster
+// barrier, 5 decisions, 6 row moves, 7 a last level after its totals; 8
+// and 9 count searching and last levels.  Otherwise the marks are empty.
+#ifdef GBT_GROW_PROFILE
+__device__ long long g_grow_profile[16];
+#define GROW_MARK_START long long mark_ = clock64();
+#define GROW_MARK(k)                                     \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {             \
+    const long long now_ = clock64();                    \
+    g_grow_profile[k] += now_ - mark_;                   \
+    mark_ = now_;                                        \
+  }
+#define GROW_COUNT(k) \
+  if (blockIdx.x == 0 && threadIdx.x == 0) ++g_grow_profile[k];
+#else
+#define GROW_MARK_START
+#define GROW_MARK(k)
+#define GROW_COUNT(k)
+#endif
+constexpr int64_t GROW_SMEM = 232448;  // shared memory a block can have
+// a row's bin id as a byte: in range, or out of it below or above, which
+// no histogram counts and which moves the row left or right as the int
+// would
+constexpr unsigned char BIN_BELOW = 0xfe;
+constexpr unsigned char BIN_ABOVE = 0xff;
+static_assert(MAX_BINS < BIN_BELOW, "bin ids and the two marks differ");
+static_assert(MAX_WIDTH == 1 << MAX_DEPTH, "a level's nodes");
+
+// How f features split over a cluster of at most `most` blocks: `per`
+// features a block, `blocks` blocks; block r owns features
+// r * per .. min(f, (r + 1) * per).  `grow_plan` picks `most`.
+struct GrowSplit {
+  int per, blocks;
+};
+__host__ __device__ inline GrowSplit grow_split(int f, int most) {
+  const int per = (f + most - 1) / most;
+  return {per, (f + per - 1) / per};
+}
+
+// Byte offsets of a block's arrays in its dynamic shared memory, each
+// rounded up to 8 bytes; `bytes` is their sum.  `ops.grow_smem_bytes`
+// repeats this arithmetic for the host, so the two say the same.
+struct GrowLayout {
+  int64_t pred, hist, G, H, gain, cand_g, rg, node, grad, hess, leaf, idx,
+      base, feat, thr, cand_i, ri, mask, offs, ids, bins, bytes;
+};
+
+__host__ __device__ inline int64_t take(int64_t* at, int64_t bytes) {
+  const int64_t o = *at;
+  *at += (bytes + 7) / 8 * 8;
+  return o;
+}
+
+__host__ __device__ inline GrowLayout grow_layout(GrowSplit sp, int n, int f,
+                                                  int n_bins, int max_depth) {
+  const int64_t nh = sp.per + (sp.blocks > 1 ? 1 : 0);  // histogram features
+  const int64_t W = int64_t{1} << max_depth;     // the last level's nodes
+  const int64_t WS = W > 1 ? W / 2 : 1;          // a searching level's
+  const int64_t stride = n_bins | 1;
+  const int64_t searching = max_depth > 0 ? nh * WS : 0;
+  const int64_t hist_rows = searching > W ? searching : W;
+  GrowLayout g;
+  int64_t at = 0;
+  g.pred = take(&at, 8 * int64_t{n});
+  g.hist = take(&at, 8 * hist_rows * stride);
+  g.G = take(&at, 8 * W);
+  g.H = take(&at, 8 * W);
+  g.gain = take(&at, 8 * W);
+  g.cand_g = take(&at, 8 * 2 * sp.blocks * WS);
+  g.rg = take(&at, 8 * GROW_THREADS);
+  g.node = take(&at, 4 * int64_t{n});
+  g.grad = take(&at, 4 * int64_t{n});
+  g.hess = take(&at, 4 * int64_t{n});
+  g.leaf = take(&at, 4 * W);
+  g.idx = take(&at, 4 * W);
+  g.base = take(&at, 4 * W);
+  g.feat = take(&at, 4 * W);
+  g.thr = take(&at, 4 * W);
+  g.cand_i = take(&at, 4 * 2 * sp.blocks * WS);
+  g.ri = take(&at, 4 * GROW_THREADS);
+  g.mask = take(&at, 4 * GROW_WARPS);
+  g.offs = take(&at, 4 * nh * (n_bins + 1));
+  g.ids = take(&at, 2 * nh * n);
+  g.bins = take(&at, int64_t{n} * f);
+  g.bytes = at;
+  return g;
+}
+
+struct GrowArgs {
+  const int* bins;   // (L, n, f)
+  const double* y;   // (L, n)
+  const double* w;   // (L, n)
+  double* pred;      // (L, n)
+  float* grad;       // (L, n)
+  const float* hess; // (L, n)
+  int* node;         // (L, n)
+  int* level;        // (L, 2)
+  int* feature;      // (L, T, N), and the next three
+  int* threshold;
+  int* left;
+  int* right;
+  float* value;      // (L, T, N)
+  int* n_nodes;      // (L, T)
+  int n, f, n_bins, T, max_depth;
+  GrowSplit split;   // grow_plan's
+  double lam, mcw;
+  float lr;
+};
+
+__global__ void __launch_bounds__(GROW_THREADS, GROW_BLOCKS_SM)
+gbt_grow_kernel(const GrowArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = a.n, f = a.f, n_bins = a.n_bins, max_depth = a.max_depth;
+  const GrowLayout lay = grow_layout(a.split, n, f, n_bins, max_depth);
+  double* s_pred = reinterpret_cast<double*>(smem + lay.pred);
+  float2* s_hist = reinterpret_cast<float2*>(smem + lay.hist);
+  double* s_G = reinterpret_cast<double*>(smem + lay.G);
+  double* s_H = reinterpret_cast<double*>(smem + lay.H);
+  double* s_gain = reinterpret_cast<double*>(smem + lay.gain);
+  double* s_cand_g = reinterpret_cast<double*>(smem + lay.cand_g);
+  double* s_rg = reinterpret_cast<double*>(smem + lay.rg);
+  int* s_node = reinterpret_cast<int*>(smem + lay.node);
+  float* s_grad = reinterpret_cast<float*>(smem + lay.grad);
+  float* s_hess = reinterpret_cast<float*>(smem + lay.hess);
+  float* s_leaf = reinterpret_cast<float*>(smem + lay.leaf);
+  int* s_idx = reinterpret_cast<int*>(smem + lay.idx);
+  int* s_base = reinterpret_cast<int*>(smem + lay.base);
+  int* s_feat = reinterpret_cast<int*>(smem + lay.feat);
+  int* s_thr = reinterpret_cast<int*>(smem + lay.thr);
+  int* s_cand_i = reinterpret_cast<int*>(smem + lay.cand_i);
+  int* s_ri = reinterpret_cast<int*>(smem + lay.ri);
+  unsigned* s_mask = reinterpret_cast<unsigned*>(smem + lay.mask);
+  int* s_offs = reinterpret_cast<int*>(smem + lay.offs);
+  uint16_t* s_ids = reinterpret_cast<uint16_t*>(smem + lay.ids);
+  unsigned char* s_bins = smem + lay.bins;
+
+  const int C = static_cast<int>(cluster.num_blocks());
+  int P = 1;  // C rounded up to a power of two: lanes a node's merge takes
+  while (P < C) P <<= 1;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int l = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const unsigned lanes_below = (1u << lane) - 1;
+  // this block's features k0 .. k0 + n_own - 1, in histogram slots own0 ..;
+  // slot 0 is always feature 0, whose bins give every node's totals
+  const int per = a.split.per;
+  const int k0 = rank * per;
+  const int n_own = min(f, k0 + per) - k0;
+  const int own0 = k0 == 0 ? 0 : 1;
+  const int nh = n_own + own0;
+  const int W = 1 << max_depth;
+  const int WS = W > 1 ? W / 2 : 1;
+  const int N = 2 * W - 1;
+  const int stride = n_bins | 1;
+  const int nb1 = n_bins + 1;
+  const int64_t row0 = static_cast<int64_t>(l) * n;
+  GROW_MARK_START
+
+  // the problem's rows, once
+  for (int r = tid; r < n; r += GROW_THREADS) {
+    s_node[r] = a.node[row0 + r];
+    s_grad[r] = a.grad[row0 + r];
+    s_hess[r] = a.hess[row0 + r];
+    s_pred[r] = a.pred[row0 + r];
+  }
+  for (int64_t i = tid; i < static_cast<int64_t>(n) * f; i += GROW_THREADS) {
+    const int b = a.bins[row0 * f + i];
+    s_bins[i] = b < 0 ? BIN_BELOW
+                      : (b >= n_bins ? BIN_ABOVE : static_cast<unsigned char>(b));
+  }
+  __syncthreads();
+  // each histogram feature's rows by bin, in row order: counts, offsets,
+  // then the ids (a stable counting sort, one thread a (slot, bin))
+  for (int it = tid; it < nh * n_bins; it += GROW_THREADS) {
+    const int s = it / n_bins;
+    const int b = it - s * n_bins;
+    const int k = s < own0 ? 0 : k0 + s - own0;
+    int cnt = 0;
+    for (int r = 0; r < n; ++r) cnt += s_bins[r * f + k] == b;
+    s_offs[s * nb1 + b + 1] = cnt;
+  }
+  __syncthreads();
+  for (int s = tid; s < nh; s += GROW_THREADS) {
+    int* o = s_offs + s * nb1;
+    o[0] = 0;
+    for (int b = 0; b < n_bins; ++b) o[b + 1] += o[b];
+  }
+  __syncthreads();
+  for (int it = tid; it < nh * n_bins; it += GROW_THREADS) {
+    const int s = it / n_bins;
+    const int b = it - s * n_bins;
+    const int k = s < own0 ? 0 : k0 + s - own0;
+    uint16_t* ids = s_ids + static_cast<int64_t>(s) * n;
+    int q = s_offs[s * nb1 + b];
+    for (int r = 0; r < n; ++r) {
+      if (s_bins[r * f + k] == b) ids[q++] = static_cast<uint16_t>(r);
+    }
+  }
+  __syncthreads();
+  GROW_MARK(0)
+
+  int first = a.level[2 * l];
+  int asked = a.level[2 * l + 1];
+  int phase = 0;  // cluster barriers passed; its parity picks the buffer
+  for (int t = 0; t < a.T; ++t) {
+    const int64_t tree = (static_cast<int64_t>(l) * a.T + t) * N;
+    for (int depth = 0; depth <= max_depth; ++depth) {
+      const bool last = depth == max_depth;
+      const int nv = level_nodes(first, asked, 1 << depth, last, N);
+      if (!last && nv == 0) {  // nothing to grow: the level moves no row
+        asked = 0;
+        continue;
+      }
+      // 1. histograms: thread (slot, bin) owns that cell of every valid
+      // node (node j's at row j * hs + slot) and adds the bin's rows in
+      // row order.  The last level needs feature 0 alone.
+      const int hs = last ? 1 : nh;
+      for (int it = tid; it < hs * n_bins; it += GROW_THREADS) {
+        const int s = it / n_bins;
+        const int b = it - s * n_bins;
+        float2* col = s_hist + s * stride + b;
+        const int step = hs * stride;
+        for (int j = 0; j < nv; ++j) col[j * step] = make_float2(0.f, 0.f);
+        const uint16_t* ids = s_ids + static_cast<int64_t>(s) * n;
+        const int q1 = s_offs[s * nb1 + b + 1];
+        // WALK rows at a time: their loads first, all in flight, then the
+        // adds in row order, each a load, add and store of the row's cell
+        // with no branch (a row off the level's nodes adds to node 0's
+        // cell and is not stored), so that the lanes of a warp, each on its
+        // own bin, never part
+        for (int q = s_offs[s * nb1 + b]; q < q1; q += WALK) {
+          int r[WALK], nd[WALK];
+          float g[WALK], h[WALK];
+#pragma unroll
+          for (int i = 0; i < WALK; ++i) r[i] = ids[min(q + i, q1 - 1)];
+#pragma unroll
+          for (int i = 0; i < WALK; ++i) {
+            nd[i] = q + i < q1 ? s_node[r[i]] : -1;
+            g[i] = s_grad[r[i]];
+            h[i] = s_hess[r[i]];
+          }
+#pragma unroll
+          for (int i = 0; i < WALK; ++i) {
+            const bool ok =
+                static_cast<unsigned>(nd[i]) < static_cast<unsigned>(nv);
+            float2* c = col + (ok ? nd[i] : 0) * step;
+            float2 v = *c;
+            v.x = __fadd_rn(v.x, g[i]);
+            v.y = __fadd_rn(v.y, h[i]);
+            if (ok) *c = v;
+          }
+        }
+      }
+      __syncthreads();
+      GROW_MARK(1)
+      // 2. every valid node's totals and leaf value, from feature 0
+      for (int j = tid; j < nv; j += GROW_THREADS) {
+        double G, H;
+        numpy_sums(s_hist + j * hs * stride, n_bins, &G, &H);
+        s_G[j] = G;
+        s_H[j] = H;
+        s_leaf[j] = leaf_value(G, H, a.lam);
+        s_gain[j] = -INFINITY;
+        s_idx[j] = INT_MAX;
+      }
+      __syncthreads();
+      GROW_MARK(2)
+      if (last) {
+        // every valid node is a leaf; then every row in the fit takes its
+        // next gradient and starts the next tree at the root
+        if (rank == 0) {
+          for (int j = tid; j < nv; j += GROW_THREADS)
+            a.value[tree + first + j] = s_leaf[j];
+          if (tid == 0) a.n_nodes[static_cast<int64_t>(l) * a.T + t] =
+              min(first + nv, N);
+        }
+        for (int r = tid; r < n; r += GROW_THREADS) {
+          double p = s_pred[r];
+          const int nd = s_node[r];
+          if (static_cast<unsigned>(nd) < static_cast<unsigned>(nv)) {
+            p = add_leaf(p, a.lr, s_leaf[nd]);
+            s_pred[r] = p;
+          }
+          const bool in_fit = a.w[row0 + r] > 0.0;
+          s_grad[r] = in_fit ? __double2float_rn(__dsub_rn(p, a.y[row0 + r]))
+                             : 0.f;
+          s_node[r] = in_fit ? 0 : -1;
+        }
+        first = 0;
+        asked = 1;
+        __syncthreads();
+        GROW_MARK(7)
+        GROW_COUNT(9)
+        continue;
+      }
+      // 3. the best split of each node among this block's features
+      const int items = nv * n_own;
+      for (int r0 = 0; r0 < items; r0 += GROW_THREADS) {
+        if (r0) __syncthreads();  // the last round's candidates are merged
+        search_round(
+            [=](int il) {
+              const int i = r0 + il;
+              const int j = i / n_own;
+              return s_hist + (j * nh + own0 + i - j * n_own) * stride;
+            },
+            r0, min(GROW_THREADS, items - r0), n_own, k0, n_bins, s_G, s_H,
+            a.lam, a.mcw, s_rg, s_ri, s_gain, s_idx);
+      }
+      __syncthreads();
+      GROW_MARK(3)
+      // ... to every block of the cluster
+      const int buf = phase & 1;
+      for (int e = tid; e < nv * C; e += GROW_THREADS) {
+        const int j = e / C;
+        const int d = e - j * C;
+        const int at = (buf * C + rank) * WS + j;
+        cluster.map_shared_rank(s_cand_g, d)[at] = s_gain[j];
+        cluster.map_shared_rank(s_cand_i, d)[at] = s_idx[j];
+      }
+      cluster.sync();
+      ++phase;
+      GROW_MARK(4)
+      // 4. the decisions, the same in every block: each node's best over
+      // the blocks (lane r of a group of P takes block r's candidate; the
+      // group reduces by shuffles), its children numbered in node order
+      for (int e0 = 0; e0 < nv * P; e0 += GROW_THREADS) {
+        const int e = e0 + tid;
+        const int j = e / P;
+        const int r = e - j * P;
+        double bg = -INFINITY;
+        int bi = INT_MAX;
+        if (j < nv && r < C) {
+          bg = s_cand_g[(buf * C + r) * WS + j];
+          bi = s_cand_i[(buf * C + r) * WS + j];
+        }
+#pragma unroll
+        for (int d = 1; d < MAX_CLUSTER; d <<= 1) {
+          const double og = __shfl_xor_sync(FULL, bg, d);
+          const int oi = __shfl_xor_sync(FULL, bi, d);
+          if (d < P && better(og, oi, bg, bi)) {
+            bg = og;
+            bi = oi;
+          }
+        }
+        if (j < nv && r == 0) {
+          s_gain[j] = bg;
+          s_idx[j] = bi;
+        }
+      }
+      __syncthreads();
+      const int j = tid;  // nv <= WS <= 128 < GROW_THREADS
+      const double bg = j < nv ? s_gain[j] : -INFINITY;
+      const int bi = j < nv ? s_idx[j] : INT_MAX;
+      const bool split = j < nv && splits(bg);
+      const unsigned m = __ballot_sync(FULL, split);
+      if (lane == 0) s_mask[warp] = m;
+      __syncthreads();
+      int below = __popc(m & lanes_below);
+      int k = 0;
+#pragma unroll
+      for (int w = 0; w < GROW_WARPS; ++w) {
+        const int c = __popc(s_mask[w]);
+        below += w < warp ? c : 0;
+        k += c;
+      }
+      if (j < nv) {
+        const int next = first + nv;
+        s_base[j] = split ? 2 * below : -1;
+        s_feat[j] = split ? bi / n_bins : 0;
+        s_thr[j] = split ? bi % n_bins : 0;
+        if (rank == 0) {
+          const int64_t at = tree + first + j;
+          if (split) {
+            a.feature[at] = bi / n_bins;
+            a.threshold[at] = bi % n_bins;
+            a.left[at] = next + 2 * below;
+            a.right[at] = next + 2 * below + 1;
+          } else {
+            a.value[at] = s_leaf[j];
+          }
+        }
+      }
+      __syncthreads();
+      GROW_MARK(5)
+      // rows: into a child, or into a leaf, which adds its value to pred
+      for (int r = tid; r < n; r += GROW_THREADS) {
+        int nd = s_node[r];
+        if (static_cast<unsigned>(nd) < static_cast<unsigned>(nv)) {
+          const int base = s_base[nd];
+          if (base >= 0) {
+            const unsigned char b = s_bins[r * f + s_feat[nd]];
+            nd = base + (b != BIN_BELOW && b > s_thr[nd] ? 1 : 0);
+          } else {
+            s_pred[r] = add_leaf(s_pred[r], a.lr, s_leaf[nd]);
+            nd = -1;
+          }
+          s_node[r] = nd;
+        }
+      }
+      first += nv;
+      asked = 2 * k;
+      __syncthreads();
+      GROW_MARK(6)
+      GROW_COUNT(8)
+    }
+  }
+  // the rows' state and the level, as the level-by-level path leaves them
+  if (rank == 0) {
+    for (int r = tid; r < n; r += GROW_THREADS) {
+      a.pred[row0 + r] = s_pred[r];
+      a.grad[row0 + r] = s_grad[r];
+      a.node[row0 + r] = s_node[r];
+    }
+    if (tid == 0) {
+      a.level[2 * l] = first;
+      a.level[2 * l + 1] = asked;
+    }
+  }
+  cluster.sync();  // no block leaves while another may still write to it
 }
 
 }  // namespace
@@ -563,3 +1102,151 @@ extern "C" int gbt_split(const void* hist, const void* bins, const void* y,
       n_bins, T, N, t, last, lam, mcw, lr);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory a block of gbt_grow takes for a fit of n
+// rows, f features, n_bins bins and trees of max_depth, its features split
+// over a cluster of at most `most` blocks; -1 for a fit the kernel does
+// not take (n over 65,535 rows, n_bins over 128, max_depth over 8).
+extern "C" long long gbt_grow_smem_bytes(int n, int f, int n_bins,
+                                         int max_depth, int most) {
+  if (n < 0 || n > MAX_ROWS || f < 1 || n_bins < 1 || n_bins > MAX_BINS ||
+      max_depth < 0 || max_depth > MAX_DEPTH || most < 1 ||
+      most > MAX_CLUSTER) {
+    return -1;
+  }
+  return grow_layout(grow_split(f, most), n, f, n_bins, max_depth).bytes;
+}
+
+// The cluster a fit of L problems takes on the current device, as the
+// `most` of grow_split(f, most): of the splits whose block fits in shared
+// memory, the one that needs the fewest waves of clusters
+// (cudaOccupancyMaxActiveClusters: what the card's SMs hold at once, by
+// registers and shared memory), and of those the one of most blocks,
+// which searches fewest features a block.  A second wave would about
+// double the fit's time, where a block with more features searches a
+// little longer.  Writes `most` and a block's shared memory; returns a
+// CUDA error code, cudaErrorInvalidValue for a fit no split holds.
+extern "C" int gbt_grow_plan(int L, int n, int f, int n_bins, int max_depth,
+                             int* most_out, long long* smem) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gbt_grow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(GROW_SMEM));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  long long best_waves = -1;
+  *most_out = 0;
+  const int top = f < MAX_CLUSTER ? f : MAX_CLUSTER;
+  for (int most = top; most >= 1 && L >= 1; --most) {
+    const int blocks = grow_split(f, most).blocks;
+    const long long bytes = gbt_grow_smem_bytes(n, f, n_bins, max_depth, most);
+    if (bytes < 0 || bytes > GROW_SMEM ||
+        static_cast<int64_t>(L) * blocks > 0x7fffffff) {
+      continue;
+    }
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = blocks;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(L * blocks));
+    cfg.blockDim = dim3(GROW_THREADS);
+    cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+    int active = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&active, gbt_grow_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (active < 1) continue;
+    const long long waves = (static_cast<long long>(L) + active - 1) / active;
+    if (best_waves < 0 || waves < best_waves) {
+      best_waves = waves;
+      *most_out = most;
+      *smem = bytes;
+    }
+  }
+  return *most_out ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A GrowState (bins (L, n, f) int32; y, w, pred (L, n) float64; grad, hess
+// (L, n) fp32; node (L, n) int32; level (L, 2) int32; feature, threshold,
+// left, right (L, T, N) int32, N = 2**(max_depth + 1) - 1; value (L, T, N)
+// fp32; n_nodes (L, T) int32; all contiguous): grows its T trees of every
+// problem in place, as T * (max_depth + 1) launches of
+// gbt_hist and gbt_split would, one cluster a problem as gbt_grow_plan
+// says.  Returns the launch's CUDA error code (0 on success;
+// cudaErrorInvalidValue for a fit no cluster's shared memory holds).
+extern "C" int gbt_grow(const void* bins, const void* y, const void* w,
+                        void* pred, void* grad, const void* hess, void* node,
+                        void* level, void* feature, void* threshold,
+                        void* left, void* right, void* value, void* n_nodes,
+                        int L, int n, int f, int n_bins, int T,
+                        int max_depth, double lam, double mcw, float lr,
+                        void* stream) {
+  if (T < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int most = 0;
+  long long smem = 0;
+  const int planned = gbt_grow_plan(L, n, f, n_bins, max_depth, &most, &smem);
+  if (planned) return planned;
+  const GrowSplit sp = grow_split(f, most);
+  const int C = sp.blocks;
+  if (T == 0) return 0;
+  GrowArgs a;
+  a.bins = static_cast<const int*>(bins);
+  a.y = static_cast<const double*>(y);
+  a.w = static_cast<const double*>(w);
+  a.pred = static_cast<double*>(pred);
+  a.grad = static_cast<float*>(grad);
+  a.hess = static_cast<const float*>(hess);
+  a.node = static_cast<int*>(node);
+  a.level = static_cast<int*>(level);
+  a.feature = static_cast<int*>(feature);
+  a.threshold = static_cast<int*>(threshold);
+  a.left = static_cast<int*>(left);
+  a.right = static_cast<int*>(right);
+  a.value = static_cast<float*>(value);
+  a.n_nodes = static_cast<int*>(n_nodes);
+  a.n = n;
+  a.f = f;
+  a.n_bins = n_bins;
+  a.T = T;
+  a.max_depth = max_depth;
+  a.split = sp;
+  a.lam = lam;
+  a.mcw = mcw;
+  a.lr = lr;
+  // one cluster a problem, its blocks along x
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = C;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(L * C));
+  cfg.blockDim = dim3(GROW_THREADS);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gbt_grow_kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef GBT_GROW_PROFILE
+// Copies g_grow_profile's 16 counters into `out` (host memory), or zeroes
+// them with `reset`.  Returns the CUDA error code.
+extern "C" int gbt_grow_profile(long long* out, int reset) {
+  if (reset) {
+    const long long zero[16] = {};
+    return static_cast<int>(
+        cudaMemcpyToSymbol(g_grow_profile, zero, sizeof(zero)));
+  }
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      out, g_grow_profile, 16 * sizeof(long long)));
+}
+#endif

@@ -1,5 +1,6 @@
-"""Seeded inputs of one split step, for the tests and ``chip_smoke.py``:
-a level's histograms and a ``GrowState`` partway through a tree."""
+"""Seeded inputs for the tests and ``chip_smoke.py``: one split step (a
+level's histograms and a ``GrowState`` partway through a tree), and a
+whole fit (``fit_case``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,6 +9,18 @@ import torch
 from repro_torch.kernels.gbt_hist.ops import GrowState
 
 KINDS = ("random", "ties", "mcw_blocks", "zero_weights", "wide")
+# The main path's whole fits, each one gbt_grow launch on the card: (L
+# problems, n rows, f features, bins, max_depth, trees, distinct bin ids a
+# feature for ``fit_case``, 0 for uniform ids).  Alg 3 (3 outputs), the
+# registry's joint Alg 3 (38 combinations x 3 outputs, 16 database rows),
+# Alg 7 (binary subset features over the chains' 125 logged subsets), and
+# the vanilla XGBoost and gradient boosting baselines on inhouse's 3,360
+# training rows (a grid's few input values fill a few bins).
+MAIN_FITS = {"Alg 3": (3, 48, 7, 64, 4, 150, 0),
+             "registry": (114, 16, 7, 64, 4, 150, 0),
+             "Alg 7": (1, 125, 24, 4, 4, 200, 2),
+             "vanilla XGBoost": (1, 3360, 3, 64, 6, 100, 8),
+             "gradient boosting": (1, 3360, 3, 64, 3, 100, 8)}
 
 
 def level_case(seed: int, L: int, width: int, f: int, n_bins: int,
@@ -70,3 +83,36 @@ def level_state(case: dict, n_trees: int, max_depth: int,
     s.level.copy_(torch.from_numpy(
         np.stack([case["first"], case["n_valid"]], 1).astype(np.int32)))
     return s
+
+
+def fit_case(seed: int, L: int, n: int, f: int, n_bins: int,
+             distinct: int = 0, out_frac: float = 0.2) -> dict:
+    """A fit of L problems as numpy arrays: bin ids ``bins`` (L, n, f),
+    targets ``y`` (L, n) that depend on them, 0/1 row weights ``w`` (a
+    share ``out_frac`` of rows out of the fit) and ``base`` (L,), the mean
+    target of each problem's rows in the fit.  With ``distinct``, each
+    feature takes that many bin ids, as a grid's few input values fill a
+    few quantile bins; else ids are uniform."""
+    rng = np.random.default_rng(seed)
+    if distinct:
+        vals = np.sort(rng.permuted(np.broadcast_to(
+            np.arange(n_bins), (L, f, n_bins)), axis=-1)[..., :distinct])
+        pick = rng.integers(0, distinct, (L, n, f))
+        bins = np.take_along_axis(vals[:, None], pick[..., None],
+                                  -1)[..., 0]
+    else:
+        bins = rng.integers(0, n_bins, (L, n, f))
+    x = bins / n_bins
+    y = (3 * x[..., 0] + np.sin(6 * x[..., -1]) + x[..., f // 2] ** 2
+         + rng.normal(0, 0.1, (L, n)))
+    w = (rng.random((L, n)) >= out_frac).astype(np.float64)
+    base = np.array([y[l, w[l] > 0].mean() if (w[l] > 0).any() else 0.0
+                     for l in range(L)])
+    return dict(bins=bins.astype(np.int32), y=y, w=w, base=base)
+
+
+def fit_state(case: dict, n_trees: int, max_depth: int,
+              device) -> GrowState:
+    """``case``'s fit before its first tree, on ``device``."""
+    return GrowState.start(case["bins"], case["y"], case["w"], case["base"],
+                           n_trees, max_depth, device)

@@ -5,9 +5,11 @@ versions for CPU tensors.
 level for L independent problems in one call (the reference made one
 masked pass per node and a Python loop over problems).
 ``split_level`` grows the level from them on the device: the split search,
-the leaf values, the tree entries and the rows' next nodes.  Together they
-let ``core.gbt.grow_forests`` grow whole forests with no copy back to the
-host until the end of the fit.
+the leaf values, the tree entries and the rows' next nodes.  ``grow_fit``
+grows a whole fit in one launch, its state in a thread-block cluster's
+shared memory, for every fit that ``fits_on_chip`` accepts; the other two
+grow larger fits level by level.  So ``core.gbt.grow_forests`` grows whole
+forests with no copy back to the host until the end of the fit.
 """
 from __future__ import annotations
 
@@ -16,13 +18,24 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.gbt_hist.kernel import gbt_hist_lnf, gbt_split_l
-from repro_torch.kernels.gbt_hist.ref import gbt_hist_ref, gbt_split_ref
+from repro_torch.kernels.gbt_hist.kernel import (gbt_grow_l, gbt_hist_lnf,
+                                                 gbt_split_l)
+from repro_torch.kernels.gbt_hist.ref import (gbt_grow_ref, gbt_hist_ref,
+                                              gbt_split_ref)
 
 # the split step follows numpy's pairwise sum only up to 128 values a row,
 # and keeps a level's nodes in shared memory: 2**8 of them
 SPLIT_MAX_BINS = 128
 SPLIT_MAX_DEPTH = 8
+# gbt_grow (csrc/gbt_hist.cu): blocks of 256 threads, at most 8 a cluster
+# (the portable size), 16-bit row ids, and the shared memory an H100 block
+# can have (227 KB).  The library picks each fit's cluster from what the
+# card holds at once (``gbt_grow_plan``); here only whether some cluster
+# holds the fit.
+GROW_THREADS = 256
+GROW_MAX_CLUSTER = 8
+GROW_MAX_ROWS = 65_535
+GROW_SMEM = 232_448
 
 
 def build_node_histograms(bins, grad, hess, node, n_nodes: int,
@@ -107,6 +120,11 @@ class GrowState:
     n_nodes: torch.Tensor    # (L, T) int32
 
     def __post_init__(self):
+        self.check()
+
+    def check(self) -> None:
+        """Raises unless every tensor has its shape and dtype, contiguous on
+        one device, and N is a full tree's node count."""
         L, n, f = self.bins.shape
         T, N = self.value.shape[1:]
         dev = self.bins.device
@@ -214,3 +232,97 @@ def split_level(hist, s: GrowState, t: int, depth: int, max_depth: int,
 
 
 split_level.launches = 0
+
+
+def grow_split(f: int, most: int) -> tuple:
+    """(features a block, blocks) of ``grow_fit``'s cluster for f features
+    over at most ``most`` blocks, block r owning features r * per ..
+    (r + 1) * per: the kernel's ``grow_split``."""
+    per = -(-f // most)
+    return per, -(-f // per)
+
+
+def grow_smem_bytes(n: int, f: int, n_bins: int, max_depth: int,
+                    most: int) -> int:
+    """The shared memory of one ``grow_fit`` block, in bytes, for clusters
+    of at most ``most`` blocks: the kernel's ``grow_layout``
+    (csrc/gbt_hist.cu), each array rounded up to 8 bytes.  Per row: pred 8,
+    node, grad and hess 4 each, every feature's bin id 1, and a 2-byte id
+    for each histogram feature (its own and feature 0); the histograms of
+    the widest searching level's nodes (or the last level's, feature 0
+    alone), and per-node and per-thread scratch."""
+    per, blocks = grow_split(f, most)
+    nh = per + (blocks > 1)
+    W = 2 ** max_depth
+    WS = max(1, W // 2)
+    stride = n_bins | 1
+    hist_rows = max(nh * WS if max_depth else 0, W)
+    sizes = (8 * n, 8 * hist_rows * stride, 8 * W, 8 * W, 8 * W,
+             8 * 2 * blocks * WS, 8 * GROW_THREADS, 4 * n, 4 * n, 4 * n,
+             4 * W, 4 * W, 4 * W, 4 * W, 4 * W, 4 * 2 * blocks * WS,
+             4 * GROW_THREADS, 4 * (GROW_THREADS // 32),
+             4 * nh * (n_bins + 1), 2 * nh * n, n * f)
+    return sum(-(-b // 8) * 8 for b in sizes)
+
+
+def fits_on_chip(L: int, n: int, f: int, n_bins: int, max_depth: int) -> bool:
+    """Whether ``grow_fit`` takes a fit of L problems of n rows, f features
+    and n_bins bins with trees of max_depth: within the split step's limits,
+    16-bit row ids, and some cluster's block within an H100 block's shared
+    memory (the kernel's ``gbt_grow_plan`` chooses among those).  A pure
+    function of the shapes."""
+    if not (1 <= L <= (2 ** 31 - 1) // GROW_MAX_CLUSTER
+            and 0 <= n <= GROW_MAX_ROWS and f >= 1
+            and 1 <= n_bins <= SPLIT_MAX_BINS
+            and 0 <= max_depth <= SPLIT_MAX_DEPTH):
+        return False
+    return min(grow_smem_bytes(n, f, n_bins, max_depth, most)
+               for most in range(1, min(f, GROW_MAX_CLUSTER) + 1)) <= GROW_SMEM
+
+
+def grow_fit(state: GrowState, n_trees: int, max_depth: int, n_bins: int,
+             reg_lambda: float, min_child_weight: float,
+             learning_rate: float) -> None:
+    """Grows the ``n_trees`` trees (the state's T) of every problem of
+    ``state`` in place, as ``n_trees * (max_depth + 1)`` pairs of
+    ``build_node_histograms`` (at each level's full width 2**depth) and
+    ``split_level`` would, bit for bit: the tree arrays, and the rows' pred,
+    grad and node and the level they leave.
+
+    On CUDA tensors it launches ``gbt_grow`` once, one thread-block cluster
+    a problem of the size the library's ``gbt_grow_plan`` picks for the
+    card (``fits_on_chip`` must accept the fit), or raises;
+    ``grow_fit.launches`` counts the launches.  On CPU tensors it runs the
+    plain version, ``ref.gbt_grow_ref``."""
+    if not isinstance(state, GrowState):
+        raise TypeError(f"state must be a GrowState, got {type(state)}")
+    state.check()
+    L, n, f = state.bins.shape
+    T, N = state.value.shape[1:]
+    if not 1 <= n_bins <= SPLIT_MAX_BINS:
+        raise ValueError(f"n_bins {n_bins} outside 1..{SPLIT_MAX_BINS}")
+    if not 0 <= max_depth <= SPLIT_MAX_DEPTH \
+            or N != 2 ** (max_depth + 1) - 1:
+        raise ValueError(f"max_depth {max_depth} (at most {SPLIT_MAX_DEPTH}) "
+                         f"and the state's {N} nodes a tree do not fit")
+    if n_trees != T:
+        raise ValueError(f"n_trees {n_trees}: the state holds {T} trees")
+    dev = state.bins.device
+    if dev.type == "cpu":
+        gbt_grow_ref(state, n_trees, max_depth, n_bins, reg_lambda,
+                     min_child_weight, learning_rate)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"grow_fit: state on {dev}")
+    if not fits_on_chip(L, n, f, n_bins, max_depth):
+        raise ValueError(
+            f"grow_fit: a fit of L {L}, n {n}, f {f}, {n_bins} bins, depth "
+            f"{max_depth} exceeds the kernel's limits or {GROW_SMEM} B of "
+            f"shared memory a block; grow it level by level")
+    if n_trees:
+        gbt_grow_l(state, max_depth, n_bins, float(reg_lambda),
+                   float(min_child_weight), float(learning_rate))
+        grow_fit.launches += 1
+
+
+grow_fit.launches = 0

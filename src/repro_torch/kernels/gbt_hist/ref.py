@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of K4's two kernels: the gradient/hessian
-histograms of one tree level, and the split step that grows the level
-from them."""
+"""Plain PyTorch versions of K4's kernels: the gradient/hessian histograms
+of one tree level, the split step that grows the level from them, and a
+whole fit, level by level over the two."""
 import math
 
 import torch
@@ -144,3 +144,19 @@ def gbt_split_ref(hist, s, t: int, depth: int, max_depth: int,
     else:
         s.level.copy_(torch.stack([nxt, n_new], 1).int())
     s.node.copy_(node.int())
+
+
+def gbt_grow_ref(s, n_trees: int, max_depth: int, n_bins: int,
+                 reg_lambda: float, min_child_weight: float,
+                 learning_rate: float) -> None:
+    """Trees 0 .. n_trees - 1 of the ``ops.GrowState`` ``s``, grown in place
+    level by level: each level's histograms by ``gbt_hist_ref`` at the
+    level's full width 2**depth, then ``gbt_split_ref``.  On the CPU the
+    histograms add in row order, so this is ``ops.grow_fit``'s contract bit
+    for bit; on a card ``index_add_``'s order varies."""
+    for t in range(n_trees):
+        for depth in range(max_depth + 1):
+            hist = gbt_hist_ref(s.bins, s.grad, s.hess, s.node, 2 ** depth,
+                                n_bins)
+            gbt_split_ref(hist, s, t, depth, max_depth, reg_lambda,
+                          min_child_weight, learning_rate)

@@ -14,9 +14,10 @@ through the serving engine too.  Tolerances:
 fp32 2e-5, bf16 2e-2, as ``test_kernels.py``.  The GBT-histogram kernel is
 held to its exact contract: the bits of numpy's float32 ``np.add.at``; the
 ALA's device paths (LM solve, forest traversal, bank distances) to their
-CPU contracts; K4's split step to its plain version bit for bit, the
-forests it grows on the card to the host loop's over K4's plain
-histograms, and a small ALA run's launches to its tree levels.  Every test needs a card and
+CPU contracts; K4's split step and its whole-fit kernel (``gbt_grow``,
+one launch a fit) to their plain versions bit for bit, the forests grown
+on the card to the host loop's over K4's plain histograms, and a small ALA
+run's launches to its fits.  Every test needs a card and
 skips without one; this file imports no JAX, so it runs where only torch
 is installed:
 
@@ -36,7 +37,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gbt_hist import ops as gh_ops
-from repro_torch.kernels.gbt_hist.cases import KINDS, level_case, level_state
+from repro_torch.kernels.gbt_hist.cases import (KINDS, fit_case, fit_state,
+                                                level_case, level_state)
 from repro_torch.kernels.gbt_hist.ref import gbt_hist_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
@@ -545,15 +547,21 @@ def test_split_step_kernel_is_its_plain_version_bit_for_bit(cuda, n_bins,
             assert got.numpy().tobytes() == want.numpy().tobytes(), k
 
 
+@pytest.mark.parametrize("path", ["grow", "levels"])
 @pytest.mark.parametrize("max_depth", [1, 2, 3, 4])
 @pytest.mark.parametrize("C,O,n,f,n_bins", [(1, 1, 125, 24, 4),
                                             (5, 3, 48, 7, 64)])
-def test_forests_grown_on_the_card_are_the_host_loops(cuda, C, O, n, f,
-                                                      n_bins, max_depth):
-    """L 1 and L 15: the resident loop on the card against the host loop
-    over K4's plain histograms on the CPU, bit for bit; two launches a
-    level and nothing else per level."""
+def test_forests_grown_on_the_card_are_the_host_loops(cuda, monkeypatch, C, O,
+                                                      n, f, n_bins, max_depth,
+                                                      path):
+    """L 1 and L 15: the forests grown on the card against the host loop
+    over K4's plain histograms on the CPU, bit for bit, on both of the
+    card's paths: one ``gbt_grow`` launch a fit and no launch a level, or
+    (``fits_on_chip`` made to refuse the fit) the level path's two
+    launches a level."""
     from repro_torch.core import gbt
+    if path == "levels":
+        monkeypatch.setattr(gh_ops, "fits_on_chip", lambda *a: False)
     rng = np.random.default_rng(max_depth)
     X = rng.uniform(0, 10, (C, n, f))
     Y = np.stack([X[..., 0] * 3 + X[..., 1], np.sin(X[..., 2]),
@@ -561,13 +569,17 @@ def test_forests_grown_on_the_card_are_the_host_loops(cuda, C, O, n, f,
     W = (rng.random((C, n)) < 0.7).astype(np.float64)
     kw = dict(n_estimators=6, max_depth=max_depth, n_bins=n_bins)
     counts = (gh_ops.build_node_histograms.launches,
-              gh_ops.split_level.launches, gbt.grow_forests.levels)
+              gh_ops.split_level.launches, gh_ops.grow_fit.launches,
+              gbt.grow_forests.levels)
     got = gbt.fit_packed_forest(X, Y, W, **kw)
     want = gbt.fit_packed_forest(X, Y, W, use_kernel=True, device="cpu", **kw)
     levels = 6 * (max_depth + 1)
+    want_counts = ((0, 0, 1, levels) if path == "grow"
+                   else (levels, levels, 0, levels))
     assert (gh_ops.build_node_histograms.launches - counts[0],
             gh_ops.split_level.launches - counts[1],
-            gbt.grow_forests.levels - counts[2]) == (levels,) * 3
+            gh_ops.grow_fit.launches - counts[2],
+            gbt.grow_forests.levels - counts[3]) == want_counts
     for k in ("feature", "threshold", "left", "right", "value", "n_nodes",
               "base"):
         assert np.array_equal(getattr(got, k), getattr(want, k)), k
@@ -578,6 +590,68 @@ def test_forests_grown_on_the_card_are_the_host_loops(cuda, C, O, n, f,
         for a, b in zip(card.trees_, host.trees_):
             for k in ("feature", "threshold", "left", "right", "value"):
                 assert np.array_equal(getattr(a, k), getattr(b, k)), k
+
+
+# (L, n, f, n_bins, max_depth, trees, distinct bin ids a feature): the main
+# path's fits (Alg 3, the registry, Alg 7, the two baseline GBTs; trees
+# cut for the plain version's time on the CPU) and the kernel's edges: a
+# lone feature and bin at depth 0, 17 features over 6 blocks at 128 bins,
+# depth 8
+GROW_CASES = [(3, 48, 7, 64, 4, 8, 0), (114, 16, 7, 64, 4, 2, 0),
+              (1, 125, 24, 4, 4, 20, 2), (1, 3360, 3, 64, 6, 4, 8),
+              (1, 3360, 3, 64, 3, 8, 8), (2, 10, 1, 1, 0, 3, 0),
+              (2, 100, 17, 128, 5, 3, 0), (2, 40, 9, 16, 8, 3, 0)]
+
+
+@pytest.mark.parametrize("case", GROW_CASES)
+def test_grow_kernel_is_its_plain_version_bit_for_bit(cuda, case):
+    """One ``gbt_grow`` launch against ``gbt_grow_ref`` on the CPU (whose
+    fp32 histograms add in row order), in every tensor of the state; the
+    last problem has no row in the fit."""
+    L, n, f, n_bins, max_depth, trees, distinct = case
+    c = fit_case(sum(case), L, n, f, n_bins, distinct=distinct)
+    c["w"][-1] = 0.0 if L > 1 else c["w"][-1]
+    card = fit_state(c, trees, max_depth, cuda)
+    plain = fit_state(c, trees, max_depth, "cpu")
+    launches = gh_ops.grow_fit.launches
+    gh_ops.grow_fit(card, trees, max_depth, n_bins, 1.0, 1.0, 0.1)
+    torch.cuda.synchronize()
+    assert gh_ops.grow_fit.launches == launches + 1
+    gh_ops.grow_fit(plain, trees, max_depth, n_bins, 1.0, 1.0, 0.1)
+    for k in GROW_STATE:
+        got, want = getattr(card, k).cpu(), getattr(plain, k)
+        assert got.numpy().tobytes() == want.numpy().tobytes(), k
+
+
+def test_grow_kernel_is_the_card_level_path_and_refuses_larger_fits(cuda):
+    """gbt_grow and the level-by-level launches give the same state; the
+    kernel's own count of its shared memory is ``ops.grow_smem_bytes``'s
+    for every cluster, and its plan takes a cluster whose block holds the
+    fit (on an H100, whose SMs hold 2 blocks of 128 registers: the
+    registry's 114 problems in clusters of 2 blocks, all resident); a fit
+    beyond a block's shared memory raises on the card."""
+    from repro_torch.core import gbt
+    from repro_torch.kernels.gbt_hist import kernel
+    c = fit_case(9, 4, 300, 5, 32, distinct=6)
+    one, levels = (fit_state(c, 5, 5, cuda) for _ in range(2))
+    gh_ops.grow_fit(one, 5, 5, 32, 1.0, 1.0, 0.1)
+    gbt._grow_levels(levels, 5, 5, 32, 1.0, 1.0, 0.1)
+    for k in GROW_STATE:
+        assert torch.equal(getattr(one, k), getattr(levels, k)), k
+    for L, n, f, n_bins, d in ((3, 48, 7, 64, 4), (114, 16, 7, 64, 4),
+                               (1, 125, 24, 4, 4), (1, 3360, 3, 64, 6),
+                               (2, 40, 9, 16, 8), (300, 20, 7, 16, 3)):
+        for most in range(1, min(f, 8) + 1):
+            assert kernel.grow_smem_bytes(n, f, n_bins, d, most) == \
+                gh_ops.grow_smem_bytes(n, f, n_bins, d, most)
+        most, smem = kernel.grow_plan(L, n, f, n_bins, d)
+        assert smem == gh_ops.grow_smem_bytes(n, f, n_bins, d, most) \
+            <= gh_ops.GROW_SMEM
+    assert gh_ops.grow_split(7, kernel.grow_plan(114, 16, 7, 64, 4)[0]) \
+        == (4, 2)
+    big = fit_case(1, 1, 11_088, 3, 64, distinct=8)
+    with pytest.raises(ValueError, match="level by level"):
+        gh_ops.grow_fit(fit_state(big, 1, 6, cuda), 1, 6, 64, 1.0, 1.0, 0.1)
 
 
 def test_lm_solve_is_batch_invariant_on_the_card(cuda):
@@ -620,7 +694,7 @@ def test_forest_traversal_and_bank_distances_on_the_card(cuda):
         rtol=0, atol=1e-6)
 
 
-def test_small_ala_launches_one_histogram_kernel_per_tree_level(cuda):
+def test_small_ala_grows_each_fit_in_one_launch(cuda):
     from repro_torch.bench.datasets import (make_inhouse_dataset,
                                             train_test_split)
     from repro_torch.core import gbt
@@ -632,17 +706,19 @@ def test_small_ala_launches_one_histogram_kernel_per_tree_level(cuda):
     ala.cfg.sa = SAConfig(n_iters=2, gbt_kw=dict(n_estimators=5))
     launches = gh_ops.build_node_histograms.launches
     splits = gh_ops.split_level.launches
+    grows = gh_ops.grow_fit.launches
     levels = gbt._joint_histograms.levels
-    grown_before = gbt.grow_forests.levels
+    fits = gbt.grow_forests.fits
     ala.fit(*train.workload)
     ala.explore(test.workload, n_chains=2)
     ala.fit_error(n_estimators=10)
     err, conf = ala.estimate(test.workload)
     assert np.isfinite(err) and 0.0 < conf <= 1.0 + 1e-6
     assert gbt._joint_histograms.levels == levels   # no host loop
-    grown = gbt.grow_forests.levels - grown_before
-    assert gh_ops.build_node_histograms.launches - launches == grown > 0
-    assert gh_ops.split_level.launches - splits == grown
+    # every fit on the card is one gbt_grow launch; no level launches
+    assert gh_ops.grow_fit.launches - grows == gbt.grow_forests.fits - fits > 0
+    assert gh_ops.build_node_histograms.launches == launches
+    assert gh_ops.split_level.launches == splits
 
 
 # -- the shapes of the four newer dense configs and Alg 4 ------------------
@@ -735,20 +811,21 @@ def _two_hardware_rows():
 def test_registry_fit_is_one_batched_fit_on_the_card(cuda):
     """Both combinations' Alg 2 in one LM solve (one padding class) and
     their Alg 3 in one ``grow_forests``: n_estimators x (max_depth + 1)
-    levels, one launch of each K4 kernel a level."""
+    levels, all in one ``gbt_grow`` launch."""
     from repro_torch.core import fit, gbt
     from repro_torch.core.registry import ModelRegistry
     data = _two_hardware_rows()
     counts = (fit._solve_padded.solves, gbt.grow_forests.levels,
-              gh_ops.build_node_histograms.launches,
+              gh_ops.grow_fit.launches, gh_ops.build_node_histograms.launches,
               gh_ops.split_level.launches, gbt._joint_histograms.levels)
     reg = ModelRegistry().fit(data, n_estimators=12, max_depth=3)
     assert len(reg.combos) == 2
     assert (fit._solve_padded.solves - counts[0],
             gbt.grow_forests.levels - counts[1],
-            gh_ops.build_node_histograms.launches - counts[2],
-            gh_ops.split_level.launches - counts[3],
-            gbt._joint_histograms.levels - counts[4]) == (1, 48, 48, 48, 0)
+            gh_ops.grow_fit.launches - counts[2],
+            gh_ops.build_node_histograms.launches - counts[3],
+            gh_ops.split_level.launches - counts[4],
+            gbt._joint_histograms.levels - counts[5]) == (1, 48, 1, 0, 0, 0)
 
 
 def test_registry_on_the_card_matches_the_cpu(cuda):
