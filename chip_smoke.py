@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two paths on one NVIDIA card: serving
 the five dense configs (llama3.1-8b, llama3.2-3b, qwen3-0.6b, qwen2.5-32b,
-command-r-35b), and the ALA pipeline (paper Alg 1-8) on the paper's data
-and on the rows the card measures.
+command-r-35b) and the MoE and recurrent ones (phi3.5-moe,
+llama4-maverick, xlstm-125m, jamba), and the ALA pipeline (paper Alg 1-8)
+on the paper's data and on the rows the card measures.
 
     python3 chip_smoke.py
 
@@ -17,8 +18,9 @@ Phases, each printing its own lines:
    ``cuobjdump -sass`` of the built flash-attention library must show HMMA
    or HGMMA instructions in every bf16 instantiation of the kernel;
 3. each kernel against its plain PyTorch version on the card: the shape
-   sweeps of ``tests/test_kernels.py``, ragged lengths, the five configs'
-   widths (RMSNorm at d 128 over qwen3's q/k-norm rows, 1,024 to 8,192;
+   sweeps of ``tests/test_kernels.py``, ragged lengths, the configs'
+   widths (RMSNorm at d 128 over qwen3's q/k-norm rows, 1,024 to 8,192,
+   xlstm-125m's 768 and the smoke models' 64;
    both attentions at 16, 24, 32, 40 and 64 query heads over 8) and a
    cache holding NaN past the fill level, fp32 within 2e-5 and bf16 within
    2e-2; RMSNorm plain and fused with the residual add, whose sum must be
@@ -55,9 +57,10 @@ Phases, each printing its own lines:
    a ``copy_`` that moves the same bytes; then the kernel's device ms
    per call (every kernel of the call summed) and the library call's, from
    one torch.profiler pass each; RMSNorm also at a prefill's rows of every
-   newer width and of qwen3's q/k norms, with how it cuts each width; for
-   decode attention also its n_split, grid and achieved GB/s, its device
-   ms with the positions cut into 1, 2, 4 and 8 splits, and the same at
+   newer width (d 64 and 768 included) and of qwen3's q/k norms, with
+   how it cuts each width; for decode attention also its n_split, grid
+   and achieved GB/s, its device ms with the positions cut into 1, 2, 4
+   and 8 splits, and the same at
    the newer configs' groups (2, 3, 5, 8 query heads a KV head); K4 also
    at the registry's 114 problems; ``gbt_grow`` a whole fit at each main
    path fit's shape, its plain version once, its bound from the
@@ -99,7 +102,8 @@ Phases, each printing its own lines:
     and full depth (seeded random weights, nothing cut), one after
     another, each through ``measure_arch`` over phase [8]'s grid with its
     launches counted exactly; parameters, peak memory, seconds and
-    throughput per model;
+    throughput per model, and 8 replays of its graphed step traced (device
+    ms a step by kernel kind: K1, K3, GEMM, sort, gather/scatter, other);
 11. Alg 4: ``ModelRegistry`` fitted on the card on ``suite`` plus the five
     models' card rows, in one batched fit (one LM solve a padding class,
     one ``grow_forests``, one ``gbt_grow`` launch, for every combination's
@@ -121,7 +125,22 @@ Phases, each printing its own lines:
     trees equal to the host loop's over K4's plain histograms, each GBT
     one ``gbt_grow`` launch, the random forest (it samples columns) K4's
     histograms a level;
-14. the kernel table as one JSON line (``main_path`` false for
+14. the MoE and recurrent blocks: (a) phi3.5-moe and llama4-maverick at
+    full width cut to 2 layers (llama4's one period), xlstm-125m whole
+    and jamba at its smoke size, each as phase [5] checks a model (card
+    against CPU, 16 graph replays bit-equal to eager steps, recurrent
+    states included, K1/K3 graph nodes), one eager decode step under
+    ``torch.cuda.set_sync_debug_mode("error")``; (b) jamba's blocks at
+    full width one at a time: its Mamba mixer (d 8,192, d_inner 16,384)
+    on the card against the CPU over a 64-token prefill and 4 decode
+    steps, its MoE FFN (16 experts of d_ff 24,576) on the card against a
+    plain per-expert loop over 4,096 tokens, with a seeded and a zeroed
+    router (which overflows capacity: the same entries dropped, their
+    tokens' output exactly zero); (c) phi3.5-moe at 24 of 32 layers,
+    llama4-maverick at one period and xlstm-125m whole through
+    ``measure_arch`` as phase [10] runs it, launches counted exactly
+    (its rows are printed, not fed to phase [11]);
+15. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
 
@@ -158,6 +177,11 @@ CELLS = ((512, 64, 8), (128, 128, 32))  # (ii, oo, bb) served at full width
 REPS = 2
 FP32, BF16 = torch.float32, torch.bfloat16
 TOL = {FP32: 2e-5, BF16: 2e-2}
+# a whole model's logits, card against CPU, bf16 as the kernels; fp32 at
+# 1e-3: xlstm-125m's 12 recurrent layers carry another summation order to
+# 1.0e-4 (H100 80GB HBM3, 700 W), while computing it in bf16 moves its
+# logits by 0.23, so a bf16 rounding anywhere still fails by 200x
+MODEL_TOL = {FP32: 1e-3, BF16: 2e-2}
 # K4 (L problems, n rows, f features, nodes, bins) on the ALA's path: the
 # Alg 3 predictor (3 outputs) and the 4-chain SA evaluator (3 x candidates)
 # over 48 (ii, oo) groups of 7 features in 64 bins, one level per node
@@ -201,6 +225,26 @@ MEASURE_GRID = dict(grid_ii=(128, 512), grid_oo=(16, 32), grid_bb=(1, 4, 16),
 DENSE_NEW = ("llama3.2-3b", "qwen3-0.6b", "qwen2.5-32b", "command-r-35b")
 GROUPS_NEW = (2, 3, 5, 8)        # their query heads a KV head (KV 8)
 WIDTHS_NEW = (1024, 3072, 5120, 8192)   # their d_model
+# phase [14]: the MoE and recurrent configs.  (a) card against CPU:
+# phi3.5-moe and llama4-maverick at full width cut to 2 layers (llama4's
+# one period of a dense and a MoE block), xlstm-125m whole, and jamba at
+# its smoke size (None: whole); (b) jamba's Mamba mixer and MoE FFN at
+# full width, one block each, the FFN over MOE_TOKENS tokens; (c)
+# measure_arch at full width: phi3.5-moe at 24 of its 32 layers (the 32
+# take 83.7 GB), llama4-maverick one period (2 of 48), xlstm-125m whole
+# xlstm-125m and jamba's smoke model are held in fp32 (MODEL_TOL), bf16
+# printed beside it: bf16
+# rounding alone moves their logits by 0.15 to 1.0 on one CPU (sLSTM's
+# exp input gates; the smoke model's 4 experts, where a rounding flips a
+# token's route), so no two bf16 runs of them agree within 2e-2
+BLOCK_CHECKS = (("phi3.5-moe-42b-a6.6b", 2, BF16),
+                ("llama4-maverick-400b-a17b", 2, BF16),
+                ("xlstm-125m", None, FP32))
+BLOCK_MEASURE = (("phi3.5-moe-42b-a6.6b", 24),
+                 ("llama4-maverick-400b-a17b", 2), ("xlstm-125m", None))
+JAMBA = "jamba-1.5-large-398b"
+MOE_TOKENS = 4096
+WIDTHS_BLOCKS = (768, 64)   # K1 at xlstm-125m's d_model, the smoke models'
 # K1 over qwen3's q/k norms in a prefill of 8 x 1,024 tokens, 16 heads
 QK_ROWS = (8192 * 16, 128)
 # K4 at the registry's joint Alg 3 fit: 33 suite and 5 card combinations
@@ -1275,51 +1319,103 @@ def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False):
     return tm
 
 
-def two_layer_checks(arch) -> bool:
-    """Phase 5 for one config: its full width cut to 2 layers, on the card
-    through the kernels against the CPU through the plain versions (same
-    weights, bf16 within 2e-2); then its decode step replayed as a CUDA
-    graph against 16 eager greedy steps, logits and tokens bit for bit,
-    and the captured step's K1 and K3 nodes counted from the graph: one
-    K1 a norm (2 a block, the final one, and with QK-norm 2 more a block)
-    and one K3 a block."""
-    from repro_torch.configs import get_config
+def _step_counts(cfg):
+    """K1 plain, K1 fused and attention layers of one forward of ``cfg``:
+    one plain norm (block 0's norm1) and, with QK-norm, 2 an attention
+    layer; 2 fused norms a block with an FFN (dense or MoE), 1 without
+    (its mixer's add fused with the next norm); K2/K3 once an attention
+    layer."""
+    n_attn = sum(b.mixer == "attn" for b in cfg.period) * cfg.n_periods
+    fused = sum(2 if b.ffn == "moe" or (b.ffn == "dense" and cfg.d_ff > 0)
+                else 1 for b in cfg.period) * cfg.n_periods
+    return 1 + 2 * n_attn * cfg.qk_norm, fused, n_attn
+
+
+def _served(model, toks, steps):
+    """Last-token logits of a prefill of ``toks`` and a decode step for
+    each of ``steps``, as float32 on the host."""
+    dev = model.device
+    logits, cache = model.prefill(toks.to(dev), toks.shape[1] + len(steps))
+    out = [logits.float().cpu()]
+    for tok in steps:
+        logits, cache = model.decode_step(cache, tok.to(dev))
+        out.append(logits.float().cpu())
+    return out
+
+
+def model_checks(tag, label, cfg, hold=BF16) -> bool:
+    """One model on the card through the kernels against the same weights
+    on the CPU through the plain versions, prefill of 2 x 64 tokens and 4
+    decode steps: in bf16 within 2e-2, or (``hold`` FP32) computed in
+    fp32 on the bf16 weights within 1e-3, where bf16 rounding alone
+    moves the model's logits by more than 2e-2 (the CPU's own bf16
+    against its fp32 is printed beside it).  Then its decode step
+    replayed as a CUDA graph against 16 eager greedy steps, logits, tokens
+    and recurrent states bit for bit, and the captured step's K1 and K3
+    nodes counted from the graph (``_step_counts``); the first eager step
+    runs under ``torch.cuda.set_sync_debug_mode("error")``, which raises
+    at a synchronisation with the host."""
     from repro_torch.inference.engine import DecodeGraph
     from repro_torch.inference.sampling import sample
     from repro_torch.models.transformer import Model
     t0 = time.perf_counter()
-    cfg = get_config(arch)
-    cfg2 = cfg.scaled(n_layers=2)
-    card = Model(cfg2).init(torch.Generator("cuda").manual_seed(0))
-    cpu = Model(cfg2).load({n: p.cpu() for n, p in card.named_parameters()})
+    card = Model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    weights = dict(card.named_parameters())
+    cpu = Model(cfg).load({n: p.cpu() for n, p in weights.items()})
+    t_copy = time.perf_counter() - t0
     cpu_gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=cpu_gen)
     steps = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=cpu_gen)
-    got, gcache = card.prefill(toks.cuda(), 68)
-    want, ccache = cpu.prefill(toks, 68)
-    errs, ok = [_err(got.cpu(), want)], _close(got.cpu(), want, BF16)
-    for tok in steps:
-        got, gcache = card.decode_step(gcache, tok.cuda())
-        want, ccache = cpu.decode_step(ccache, tok)
-        errs.append(_err(got.cpu(), want))
-        ok = ok and _close(got.cpu(), want, BF16)
-    ok = ok and bool(torch.isfinite(got).all())
-    print(f"[5] 2-layer {arch} width (d {cfg.d_model}, {cfg.n_heads}/"
-          f"{cfg.n_kv_heads} heads), card vs CPU: last-token logits max err "
+    got, want = _served(card, toks, steps), _served(cpu, toks, steps)
+    note = ""
+    if hold is FP32:
+        c32 = cfg.scaled(compute_dtype=FP32)
+        bf_errs = [_err(g, w) for g, w in zip(got, want)]
+        got = _served(Model(c32).load({n: p.float() for n, p in
+                                       weights.items()}), toks, steps)
+        want32 = _served(Model(c32).load({n: p.float() for n, p in
+                                          cpu.named_parameters()}),
+                         toks, steps)
+        own = max(_err(b, w) for b, w in zip(want, want32))
+        want = want32
+        note = (f"; in bf16, as served: card vs CPU max err "
+                f"{max(bf_errs):.3g}, the CPU's own bf16 logits "
+                f"{own:.3g} from its fp32 ones (not gated)")
+    tol = MODEL_TOL[hold]
+    errs = [_err(g, w) for g, w in zip(got, want)]
+    ok = all(bool(torch.isclose(g, w, rtol=tol, atol=tol).all())
+             for g, w in zip(got, want)) \
+        and all(bool(torch.isfinite(g).all()) for g in got)
+    heads = ("" if cfg.attention_free else
+             f", {cfg.n_heads}/{cfg.n_kv_heads} heads")
+    what = "bf16" if hold is BF16 else "fp32 on the bf16 weights"
+    print(f"{tag} {label} (d {cfg.d_model}{heads}, {cfg.n_layers} layers), "
+          f"card vs CPU in {what}: last-token logits max err "
           f"prefill {errs[0]:.3g}, decode "
-          f"{', '.join(f'{e:.3g}' for e in errs[1:])} (bf16 tol 2e-2): "
-          f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
-    del cpu, ccache
+          f"{', '.join(f'{e:.3g}' for e in errs[1:])} (tol {tol:g})"
+          f"{note}: {'ok' if ok else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s, {t_copy:.1f} s of it "
+          f"drawing and copying to the CPU)")
+    del cpu, weights
     # the same model's decode step replayed as a CUDA graph against 16
     # eager greedy steps from the same prompt: logits and tokens bit for bit
     graph = DecodeGraph(card, 2, 81)
     prompt = toks.cuda()
     logits, ecache = card.prefill(prompt, 81)
     tok = sample(logits, vocab_size=cfg.vocab_size)
-    eager = []
-    for _ in range(16):
-        logits, ecache = card.decode_step(ecache, tok)
-        tok = sample(logits, vocab_size=cfg.vocab_size)
+    eager, synced = [], "none"
+    torch.cuda.synchronize()
+    for n in range(16):
+        if n == 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, ecache = card.decode_step(ecache, tok)
+            tok = sample(logits, vocab_size=cfg.vocab_size)
+        except RuntimeError as e:  # a host sync in the "error" mode
+            synced = f"FAIL {str(e)[:120]}"
+            break
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         eager.append((logits.clone(), tok))
     logits, _ = card.prefill(prompt, cache=graph.cache)
     graph.start(sample(logits, vocab_size=cfg.vocab_size))
@@ -1328,29 +1424,256 @@ def two_layer_checks(arch) -> bool:
         graph.replay()
         same.append(torch.equal(graph.logits, logits)
                     and torch.equal(graph.tok, tok))
+    states = all(torch.equal(a, b) for st, ref in zip(graph.cache.blocks,
+                                                      ecache.blocks)
+                 if type(st).__name__ != "KVCache" for a, b in zip(st, ref))
     names = graph.kernel_names()
     nodes = tuple(sum(k in n for n in names) for k in ("rmsnorm",
                                                        "decode_attn"))
-    want_nodes = ((2 + 2 * cfg.qk_norm) * cfg2.n_layers + 1, cfg2.n_layers)
-    okg = (all(same) and int(graph.cache.pos_t) == 64 + 16
-           and nodes == want_nodes)
-    print(f"[5] 2-layer {arch}, 16 graph replays against 16 eager steps: "
+    plain, fused, n_attn = _step_counts(cfg)
+    want_nodes = (plain + fused, n_attn)
+    okg = (all(same) and len(same) == 16 and states
+           and int(graph.cache.pos_t) == 64 + 16 and nodes == want_nodes)
+    print(f"{tag} {label}, 16 graph replays against 16 eager steps: "
           f"logits and tokens bit-equal at {sum(same)} of {len(same)} "
-          f"steps; the captured step's K1/K3 nodes {nodes}, expected "
-          f"{want_nodes}, of {len(names)} kernel nodes: "
-          f"{'ok' if okg else 'FAIL'}")
-    del card, gcache, graph, ecache
+          f"steps, recurrent states bit-equal {states}; the captured "
+          f"step's K1/K3 nodes {nodes}, expected {want_nodes}, of "
+          f"{len(names)} kernel nodes; host syncs in an eager step: "
+          f"{synced}: {'ok' if okg else 'FAIL'}")
+    del card, graph, ecache
     return ok and okg
 
 
-def full_depth_phase(smi):
-    """Phase 10: each newer dense config at full width and full depth,
-    seeded random weights, through ``measure_arch`` over phase [8]'s grid
-    (the graphed engine); each model, its caches and its decode graphs
-    freed before the next is drawn.  Returns (ok, {kernel: launches},
-    {arch: rows})."""
-    from repro_torch.bench.harness import measure_arch
+def _depth(arch, layers):
+    """(label, config) of ``arch`` at full width and ``layers`` layers
+    (None: all of them)."""
     from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return f"{arch} whole", cfg
+    return (f"{arch} {layers} of {cfg.n_layers} layers",
+            cfg.scaled(n_layers=layers))
+
+
+def mamba_block_check(smi) -> bool:
+    """jamba's Mamba mixer at full width (d 8192, d_inner 16,384, d_state
+    16), one block, seeded weights: a prefill of 2 x 64 tokens (4 chunks
+    of 16) and 4 decode steps on the card against the same weights and
+    inputs on the CPU, outputs and both states (bf16 within 2e-2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config(JAMBA)
+    p = ssm.init_mamba(cfg, torch.Generator("cuda").manual_seed(0))
+    pc = {k: v.cpu() for k, v in p.items()}
+    x = torch.randn((2, 68, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(BF16)
+    errs, ok = [], True
+
+    def held(got, want):
+        nonlocal ok
+        (gy, gs), (cy, cs) = got, want
+        errs.append(max(_err(a.cpu(), b)
+                        for a, b in ((gy, cy), *zip(gs, cs))))
+        ok = ok and all(_close(a.cpu(), b, BF16)
+                        for a, b in ((gy, cy), *zip(gs, cs)))
+        return gs, cs
+
+    with torch.inference_mode():
+        ssm.mamba_full(cfg, p, x[:, :64].cuda())  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ssm.mamba_full(cfg, p, x[:, :64].cuda())
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        gs, cs = held(got, ssm.mamba_full(cfg, pc, x[:, :64]))
+        for t in range(64, 68):
+            gs, cs = held(ssm.mamba_decode(cfg, p, x[:, t:t + 1].cuda(), gs),
+                          ssm.mamba_decode(cfg, pc, x[:, t:t + 1], cs))
+    n = sum(t.numel() for t in p.values())
+    print(f"[14] {JAMBA} Mamba mixer at full width (d {cfg.d_model}, "
+          f"d_inner {cfg.mamba_d_inner}, d_state {cfg.mamba_d_state}, "
+          f"{n / 1e6:.1f} M parameters), card vs CPU: output and state max "
+          f"err prefill {errs[0]:.3g}, decode "
+          f"{', '.join(f'{e:.3g}' for e in errs[1:])} (bf16 tol 2e-2, the "
+          f"fp32 SSM state too); a 2 x 64 prefill {prefill_ms:.2f} "
+          f"ms: {'ok' if ok else 'FAIL'} [{smi}]")
+    return ok
+
+
+def moe_plain(cfg, p, x):
+    """The MoE FFN as a plain loop over experts, independent of the sort
+    and scatter of ``models.moe``: the first k experts by repeated argmax
+    (the first maximum, so ties go to the lower index), renormalised;
+    each expert's tokens found with a boolean mask, in token order, its
+    first ``cap`` kept, run through its SwiGLU with ``torch.matmul`` and
+    added gate-weighted into their rows.  Syncs with the host.  Returns
+    (y, kept (T, k) bool)."""
+    xt = x.reshape(-1, cfg.d_model)
+    n, k = xt.shape[0], cfg.top_k
+    cap = max(8, -(-int(cfg.capacity_factor * k * n / cfg.n_experts) // 8)
+              * 8)
+    probs = torch.softmax((xt @ p["router"]).float(), dim=-1)
+    left, idx = probs.clone(), []
+    for _ in range(k):
+        idx.append(left.argmax(-1))
+        left.scatter_(1, idx[-1][:, None], -1.0)
+    idx = torch.stack(idx, 1)
+    gate = probs.gather(1, idx)
+    if k > 1:
+        gate = gate / gate.sum(-1, keepdim=True)
+    w = p["experts"]
+    y = torch.zeros_like(xt)
+    kept = torch.zeros_like(idx, dtype=torch.bool)
+    for e in range(cfg.n_experts):
+        hit = idx == e
+        tokens = hit.any(1).nonzero()[:cap, 0]
+        if len(tokens):
+            choice = hit[tokens].int().argmax(1)
+            kept[tokens, choice] = True
+            xe = xt[tokens]
+            h = torch.nn.functional.silu(torch.matmul(xe, w["w_gate"][e])) \
+                * torch.matmul(xe, w["w_up"][e])
+            out = torch.matmul(h, w["w_down"][e])
+            y[tokens] += out * gate[tokens, choice].to(xt.dtype)[:, None]
+    return y.view_as(x), kept
+
+
+def moe_block_check(smi) -> bool:
+    """jamba's MoE FFN at full width (16 experts of d_ff 24,576, top-2,
+    19.3 GB), one block, on the card against ``moe_plain`` on the card,
+    over MOE_TOKENS tokens: seeded router, then a zeroed one, which sends
+    every token to experts 0 and 1 and overflows their capacity.  The
+    entries kept are the plain loop's, the tokens dropped whole give
+    exactly zero in both, the rest agree within bf16 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(JAMBA)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p = moe.init_moe(cfg, torch.Generator("cuda").manual_seed(0))
+    peak = torch.cuda.max_memory_allocated()
+    x = _randn(torch.Generator("cuda").manual_seed(1),
+               (1, MOE_TOKENS, cfg.d_model), BF16)
+    cap = moe.expert_capacity(cfg, MOE_TOKENS)
+    ok = True
+    with torch.inference_mode():
+        for which, params in (("seeded router", p),
+                              ("zeroed router", dict(
+                                  p, router=torch.zeros_like(p["router"])))):
+            y, _ = moe.moe_ffn(cfg, params, x)
+            want, kept_plain = moe_plain(cfg, params, x)
+            xt = x.reshape(-1, cfg.d_model)
+            _, _, idx = moe.route(cfg, params["router"], xt)
+            _, order, _, keep = moe.dispatch(cfg, idx, cap)
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            kept = kept.view(idx.shape)
+            dropped = ~kept.any(1)
+            y2, want2 = y.reshape(-1, cfg.d_model), want.reshape(
+                -1, cfg.d_model)
+            good = (torch.equal(kept, kept_plain)
+                    and bool((y2[dropped] == 0).all())
+                    and bool((want2[dropped] == 0).all())
+                    and _close(y, want, BF16)
+                    and bool(torch.isfinite(y).all()))
+            if which == "zeroed router":
+                good = good and bool((idx == torch.arange(
+                    cfg.top_k, device=idx.device)).all()) \
+                    and int(dropped.sum()) == MOE_TOKENS - cap
+            ok = ok and good
+            print(f"[14] {JAMBA} MoE FFN at full width, {which}, "
+                  f"{MOE_TOKENS} tokens: capacity {cap}, entries kept "
+                  f"{int(kept.sum())} of {kept.numel()} (the plain loop's: "
+                  f"{torch.equal(kept, kept_plain)}), tokens dropped whole "
+                  f"{int(dropped.sum())}, their output exactly zero; max "
+                  f"err against the plain loop {_err(y, want):.3g} (bf16 "
+                  f"tol 2e-2): {'ok' if good else 'FAIL'}")
+        ms = time_ms(lambda x: moe.moe_ffn(cfg, p, x), [(x,)], iters=5)
+        plain_ms = time_ms(lambda x: moe_plain(cfg, p, x), [(x,)], iters=2)
+    flops = 2 * 3 * cfg.n_experts * cap * cfg.d_model * cfg.expert_d_ff
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (p["router"], *p["experts"].values()))
+    bound_ms, by = _bound(nbytes, flops, PEAK_BF16)
+    print(f"[14] {JAMBA} MoE FFN: {nbytes / 1e9:.2f} GB of weights, peak "
+          f"while drawn {peak / 1e9:.2f} GB; a call over {MOE_TOKENS} "
+          f"tokens {ms:.2f} ms (every expert's {cap} slots: bound "
+          f"{bound_ms:.2f} ms, {by}), the plain loop {plain_ms:.2f} ms "
+          f"[{smi}]")
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok
+
+
+def blocks_phase(smi):
+    """Phase 14: the MoE and recurrent blocks (BLOCK_CHECKS, jamba's blocks,
+    BLOCK_MEASURE).  Returns (ok, {kernel: launches} of (c))."""
+    from repro_torch.configs import get_smoke_config
+    ok = True
+    for arch, layers, hold in BLOCK_CHECKS:
+        label, cfg = _depth(arch, layers)
+        ok = model_checks("[14]", label, cfg, hold) and ok
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = model_checks("[14]", f"{JAMBA} smoke size",
+                      get_smoke_config(JAMBA), FP32) and ok
+    ok = mamba_block_check(smi) and ok
+    ok = moe_block_check(smi) and ok
+    good, launches, _ = measure_phase(
+        "[14]", smi, [(arch, _depth(arch, layers)[1])
+                      for arch, layers in BLOCK_MEASURE])
+    return ok and good, launches
+
+
+# kernel kinds of a traced decode step, by name
+STEP_KINDS = (("K1", ("rmsnorm",)), ("K3", ("decode_attn",)),
+              ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+              ("sort", ("sort", "radix")),
+              ("gather/scatter", ("index", "scatter", "gather")))
+
+
+def trace_replays(tag, arch, model, graph, prompts, smi):
+    """Traces 8 replays of ``graph`` (a warm-up pass of 8 first) from a
+    prefill of ``prompts`` into its cache: wall and device-busy ms, the
+    device ms by kernel kind (STEP_KINDS; the rest elementwise and
+    reductions) and the top kernels."""
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+    model.prefill(toks, cache=graph.cache)
+    graph.start(toks[:, -1:])
+
+    def replay8():
+        for _ in range(8):
+            graph.replay()
+
+    wall, busy, top, _, _ = _device_profile(replay8, warm=True)
+    kinds, rest = {}, 0.0
+    for name, n, ms in top:
+        kind = next((k for k, keys in STEP_KINDS
+                     if any(key in name.lower() for key in keys)), None)
+        if kind is None:
+            rest += ms
+        else:
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+    print(f"{tag} {arch}, 8 graph replays traced: wall {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%); device ms "
+          f"a step by kind: "
+          + ", ".join(f"{k} {v / 8:.3f}" for k, v in kinds.items())
+          + f", other {rest / 8:.3f}; top kernels: "
+          + "; ".join(f"{name[:48]} x{n} {ms / 8:.3f} ms a step"
+                      for name, n, ms in top[:6]) + f" [{smi}]")
+
+
+def measure_phase(tag, smi, models):
+    """Each ``(arch, cfg)`` of ``models`` at full width (phase [10]: the
+    newer dense configs at full depth; phase [14]: the MoE and recurrent
+    ones, depth cut to fit), seeded random weights, through
+    ``measure_arch`` over phase [8]'s grid (the graphed engine), its
+    launches held to ``_step_counts``; each model, its caches and its
+    decode graphs freed before the next is drawn; 8 replays of the graphed
+    step at the step cell traced (``trace_replays``).  Returns (ok,
+    {kernel: launches}, {arch: rows})."""
+    from repro_torch.bench.harness import measure_arch
     from repro_torch.inference.engine import ServingEngine
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1365,10 +1688,9 @@ def full_depth_phase(smi):
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    print(f"[10] {held / 1e9:.2f} GB allocated on the card before the first "
+    print(f"{tag} {held / 1e9:.2f} GB allocated on the card before the first "
           f"model")
-    for arch in DENSE_NEW:
-        cfg = get_config(arch)
+    for arch, cfg in models:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1391,42 +1713,50 @@ def full_depth_phase(smi):
         # a decode step's time at the grid's largest decode cell
         cell = (min(MEASURE_GRID["grid_ii"]), max(MEASURE_GRID["grid_oo"]),
                 max(MEASURE_GRID["grid_bb"]))
-        step = ServingEngine(model).generate(np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (cell[2], cell[0])), cell[1]).decode_s \
-            / (cell[1] - 1)
+        engine = ServingEngine(model)
+        prompts = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (cell[2], cell[0]))
+        res = engine.generate(prompts, cell[1])
+        step = res.decode_s / (cell[1] - 1)
         # a cell: warm-up and reps prefills, one capture after one eager
-        # step; K1 plain once a forward (and qwen3's q/k norms), fused
-        # twice a block
-        n_l = cfg.n_layers
+        # step; K1 as _step_counts a forward
+        plain, fused, n_attn = _step_counts(cfg)
         pre = 1 + MEASURE_GRID["reps"]
         fwd = cells * (pre + 2)
-        expect = [(1 + 2 * n_l * cfg.qk_norm) * fwd, 2 * n_l * fwd,
-                  n_l * pre * cells, n_l * 2 * cells]
+        expect = [plain * fwd, fused * fwd, n_attn * pre * cells,
+                  n_attn * 2 * cells]
         ii, oo, bb, thpt = rows.workload
         good = (len(rows) == cells * MEASURE_GRID["reps"] and grew == expect
                 and bool(np.all(np.isfinite(thpt) & (thpt > 0)))
                 and set(rows["acc"]) == {"gpu-h100-sxm"})
         ok = ok and good
-        print(f"[10] {arch}: {n_params / 1e9:.3f} B parameters "
-              f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
-              f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        blocks = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}"
+                  if not cfg.n_experts else
+                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} "
+                  f"experts of d_ff {cfg.expert_d_ff}, top-{cfg.top_k}")
+        if cfg.attention_free:
+            blocks = "+".join(b.mixer for b in cfg.period) + " blocks"
+        print(f"{tag} {arch}: {n_params / 1e9:.3f} B parameters "
+              f"({cfg.n_layers} layers, d {cfg.d_model}, {blocks}, vocab "
               f"{cfg.vocab_size}), weights {weights / 1e9:.2f} GB, peak "
               f"while drawn {init_peak / 1e9:.2f} GB, init {t_init:.1f} s; "
               f"measure_arch {len(rows)} rows in {t_measure:.1f} s, peak "
               f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
               f"thpt {thpt.min():.1f} to {thpt.max():.1f} tok/s; a graphed "
-              f"decode step at (ii, oo, bb) = {cell} {1e3 * step:.2f} ms "
-              f"[{smi}]")
+              f"decode step at (ii, oo, bb) = {cell} {1e3 * step:.2f} ms, "
+              f"its prefill {1e3 * res.prefill_s:.1f} ms [{smi}]")
         for a in MEASURE_GRID["grid_ii"]:
             for o in MEASURE_GRID["grid_oo"]:
                 m = (ii == a) & (oo == o)
-                print(f"[10]   {arch} (ii, oo) = ({a}, {o}): thpt at bb "
+                print(f"{tag}   {arch} (ii, oo) = ({a}, {o}): thpt at bb "
                       f"{'/'.join(f'{b:g}' for b in bb[m])}: "
                       f"{', '.join(f'{t:.1f}' for t in thpt[m])}")
-        print(f"[10] {arch} launches rmsnorm/add_rmsnorm/flash/decode: "
+        print(f"{tag} {arch} launches rmsnorm/add_rmsnorm/flash/decode: "
               f"{grew}, expected {expect}: {'ok' if good else 'FAIL'}")
+        trace_replays(tag, arch, model, engine.decode_graph(
+            cell[2], cell[0] + cell[1]), prompts, smi)
         out[arch] = rows
-        del model
+        del model, engine
     gc.collect()
     torch.cuda.empty_cache()
     return ok, launches, out
@@ -1842,7 +2172,8 @@ def main() -> int:
     # of one head; scale fp32 and bf16
     for shape in ((8, 64), (3, 5, 128), (1, 256), (17, 96), (8, 4096),
                   (32, 4096), (4096, 4096), (2, 33), QK_ROWS,
-                  *((r, d) for d in WIDTHS_NEW for r in (8, 2048))):
+                  *((r, d) for d in WIDTHS_NEW + WIDTHS_BLOCKS
+                    for r in (8, 2048))):
         for dt in (FP32, BF16):
             for sdt in (FP32, BF16):
                 x, r = _randn(gen, shape, dt), _randn(gen, shape, dt)
@@ -1952,9 +2283,9 @@ def main() -> int:
     rms_rows = sorted({r for ii, oo, bb in CELLS for r in (bb * ii, bb)},
                       reverse=True)
     for rows, dd in ((*((r, d) for r in rms_rows), QK_ROWS,
-                      *((8192, w) for w in WIDTHS_NEW))):
+                      *((8192, w) for w in WIDTHS_NEW + WIDTHS_BLOCKS))):
         timings += k1_timings(gen, rows, dd)
-    for dd in (QK_ROWS[1], *WIDTHS_NEW):
+    for dd in (QK_ROWS[1], *WIDTHS_NEW, *WIDTHS_BLOCKS):
         print(f"[4] K1 at d {dd} bf16: a prefill's rows "
               f"{k1_plan(8192, dd)}; a decode step's 8 rows "
               f"{k1_plan(8, dd)}")
@@ -2032,7 +2363,8 @@ def main() -> int:
     # against eager -------------------------------------------------------
     ok5 = True
     for arch in (ARCH, *DENSE_NEW):
-        ok5 = two_layer_checks(arch) and ok5
+        ok5 = model_checks("[5]", f"2-layer {arch}",
+                           get_config(arch).scaled(n_layers=2)) and ok5
         torch.cuda.empty_cache()
 
     # -- 6. full width ------------------------------------------------------
@@ -2208,7 +2540,8 @@ def main() -> int:
 
     # -- 10. the newer dense configs at full width and depth ---------------
     t0 = time.perf_counter()
-    ok10, grew, by_arch = full_depth_phase(smi)
+    ok10, grew, by_arch = measure_phase(
+        "[10]", smi, [(arch, get_config(arch)) for arch in DENSE_NEW])
     for k, n in grew.items():
         launches[k] += n
     by_arch = {ARCH: llama_rows, **by_arch}
@@ -2232,7 +2565,15 @@ def main() -> int:
         print(f"{tag} phase: {'ok' if good else 'FAIL'} "
               f"({time.perf_counter() - t0:.1f} s)")
 
-    # -- 14. result -----------------------------------------------------------
+    # -- 14. MoE and recurrent blocks ----------------------------------------
+    t0 = time.perf_counter()
+    ok14, grew = blocks_phase(smi)
+    for k, n in grew.items():
+        launches[k] += n
+    print(f"[14] MoE and recurrent blocks: {'ok' if ok14 else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 15. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
                "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -2268,10 +2609,11 @@ def main() -> int:
               "[6] full width": ok6, "[7] traces": ok7,
               "[8] measure_arch": ok8, "[9] ALA": ok9,
               "[10] full depth": ok10, **results,
-              "[14] launches": all(
+              "[14] MoE and recurrent blocks": ok14,
+              "[15] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())
-    print(f"[14] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+    print(f"[15] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
           + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not ok:
         failed = [name for name, good in phases.items() if not good]

@@ -7,7 +7,7 @@ the prompt once.  On a card, decode replays one CUDA graph a step
 for each (batch, max_len) signature, as the JAX engine jits its decode
 scan once for each signature, so the timed loop runs compiled steps, not
 Python dispatch.  On the CPU, decode is a plain Python loop of
-``decode_step`` calls that update the KV cache in place.
+``decode_step`` calls that update the decode cache in place.
 
 ``measure_throughput`` produces (ii, oo, bb, thpt) rows by running the
 model on the card.  Timers are ``time.perf_counter`` around work that ends
@@ -37,19 +37,20 @@ class GenerationResult:
 
 class DecodeGraph:
     """One decode step of ``model`` at (batch, max_len), captured as a CUDA
-    graph on buffers it owns: the KV cache and its ``pos_t``, the input
+    graph on buffers it owns: the decode cache and its ``pos_t``, the input
     token ``tok`` (B, 1), the step's ``logits`` (B, 1, V) and ``history``
     (B, max_len + 1), where each replay writes the greedy next token at its
-    position.  A replay reads ``tok`` and ``pos_t``, writes K/V at pos_t,
-    the logits, the greedy token into ``tok`` and ``history``, and advances
-    pos_t: replays in a row decode greedily with no host work between.
+    position.  A replay reads ``tok`` and ``pos_t``, writes K/V at pos_t
+    and each recurrent block's next state in place, the logits, the greedy
+    token into ``tok`` and ``history``, and advances pos_t: replays in a
+    row decode greedily with no host work between.
 
     Before the capture one eager step runs on a side stream, so kernel
     builds, function attributes and cuBLAS workspaces are set up outside
-    it (its launches count like any other); the cache and ``pos_t`` are
-    zeroed after.  Fill the cache with ``model.prefill(..., cache=
-    graph.cache)``.  The launch counters of the captured kernels tick once,
-    at capture, not at replays."""
+    it (its launches count like any other); the cache's states and
+    ``pos_t`` are zeroed after.  Fill the cache with
+    ``model.prefill(..., cache=graph.cache)``.  The launch counters of the
+    captured kernels tick once, at capture, not at replays."""
 
     @torch.inference_mode()
     def __init__(self, model: Model, batch: int, max_len: int):
@@ -77,10 +78,7 @@ class DecodeGraph:
         with torch.cuda.graph(self.graph):
             self.logits = self._step()
         self.graph.instantiate()
-        for kv in self.cache.blocks:
-            kv.k.zero_()
-            kv.v.zero_()
-        self.cache.pos_t.zero_()
+        self.cache.zero_()
         torch.cuda.synchronize(dev)
 
     def _step(self):

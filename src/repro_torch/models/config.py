@@ -4,8 +4,9 @@ A model is described as a repeating *period* of heterogeneous blocks.  Each
 block has a mixer (attention / mamba / sLSTM / mLSTM) and an optional FFN
 (dense SwiGLU or MoE).  ``n_layers`` must be divisible by ``len(period)``.
 Every field of the JAX ``ModelConfig`` is kept, so a config copies over
-1:1; the dtype fields hold ``torch`` dtypes.  The torch ``Model`` runs the
-attention + dense-FFN blocks only and raises for the others.
+1:1; the dtype fields hold ``torch`` dtypes.  The torch ``Model`` runs
+every block kind; it refuses the encoder-decoder path, the vision
+frontend and sliding-window attention.
 """
 from __future__ import annotations
 

@@ -4,8 +4,10 @@ the port's.
 Model weights: the input is the JAX ``Model.init`` pytree with numpy
 leaves (``jax.tree.map(np.asarray, params)``): nested dicts, with
 ``blocks`` a tuple over period positions whose leaves carry a leading
-``n_periods`` axis.  The output names each tensor as ``Model.load``
-expects, so both packages compute with the same weights.
+``n_periods`` axis (a MoE block's experts ``(n_periods, E, D, F)``, a
+mixer's leaves under ``mamba``, ``mlstm`` or ``slstm``).  The output
+names each tensor as ``Model.load`` expects, so both packages compute
+with the same weights.
 
 Fitted ALA state has no device arrays in the reference: it is numpy
 arrays, dicts and frozensets on plain objects.  The ``*_from_reference``

@@ -1,5 +1,6 @@
-"""The torch serving engine against the JAX one: greedy tokens, the
-``measure_throughput`` row schema, sampling, and the device contract."""
+"""The torch serving engine against the JAX one: greedy tokens (of a
+dense, a MoE and a recurrent smoke model), the ``measure_throughput`` row
+schema, sampling, and the device contract."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +21,10 @@ from repro_torch.weights import params_from_jax
 ARCH = "llama3.1-8b"
 
 
-def _engines():
+def _engines(arch=ARCH):
     """Both engines on the fp32 smoke model with the same weights."""
-    jcfg = jax_get_smoke_config(ARCH).scaled(compute_dtype=jnp.float32)
-    tcfg = get_smoke_config(ARCH).scaled(compute_dtype=torch.float32)
+    jcfg = jax_get_smoke_config(arch).scaled(compute_dtype=jnp.float32)
+    tcfg = get_smoke_config(arch).scaled(compute_dtype=torch.float32)
     jmodel = JaxModel(jcfg)
     params = jmodel.init(jax.random.key(0))
     tmodel = Model(tcfg).load(
@@ -113,3 +114,27 @@ def test_decode_graph_step_gives_the_eager_tokens(monkeypatch):
     np.testing.assert_array_equal(got, want)
     assert int(graph.cache.pos_t) == 10
     assert torch.equal(graph.tok[:, 0], graph.history[:, 10])
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "xlstm-125m"])
+def test_moe_and_recurrent_greedy_tokens_match_jax(arch, monkeypatch):
+    """A MoE model (phi3.5-moe: top-2 of 4 experts, capacity 8 a decode
+    step) and a recurrent one (xlstm: sLSTM and mLSTM states): the
+    engine's greedy tokens are the JAX engine's, and the decode graph's
+    step, run eagerly on CPU tensors, gives them again from a cache
+    filled in place."""
+    from repro_torch.inference.engine import DecodeGraph
+    jeng, teng = _engines(arch)
+    prompts = np.random.default_rng(4).integers(0, 256, (2, 8), dtype=np.int32)
+    want = jeng.generate(prompts, 8).tokens
+    np.testing.assert_array_equal(teng.generate(prompts, 8).tokens, want)
+    model = teng.model
+    monkeypatch.setattr(DecodeGraph, "_capture", lambda self: None)
+    graph = DecodeGraph(model, 2, 15)
+    logits, _ = model.prefill(torch.from_numpy(prompts).long(),
+                              cache=graph.cache)
+    graph.start(sample(logits, vocab_size=model.cfg.vocab_size))
+    with torch.inference_mode():
+        for _ in range(7):
+            graph.logits = graph._step()
+    np.testing.assert_array_equal(graph.history[:, 8:16].numpy(), want)

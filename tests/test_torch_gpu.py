@@ -722,7 +722,7 @@ def test_small_ala_grows_each_fit_in_one_launch(cuda):
 
 
 # -- the shapes of the four newer dense configs and Alg 4 ------------------
-@pytest.mark.parametrize("d", [128, 1024, 3072, 5120, 8192])
+@pytest.mark.parametrize("d", [64, 128, 768, 1024, 3072, 5120, 8192])
 @pytest.mark.parametrize("rows", [8, 300])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernels_at_the_served_widths(cuda, d, rows, dtype):
@@ -856,3 +856,72 @@ def test_registry_on_the_card_matches_the_cpu(cuda):
                     assert np.array_equal(getattr(ta, k), getattr(tb, k)), k
     np.testing.assert_allclose(card.predict(data), cpu.predict(data),
                                rtol=1e-3)
+
+
+# ------------------------------------------- MoE and recurrent blocks -----
+MOE_AND_RECURRENT = {"phi3.5-moe-42b-a6.6b": 32,
+                     "llama4-maverick-400b-a17b": 32, "xlstm-125m": 32,
+                     "jamba-1.5-large-398b": 32}
+
+
+@pytest.mark.parametrize("arch", list(MOE_AND_RECURRENT))
+def test_moe_and_recurrent_smoke_models_on_card_match_cpu(cuda, arch):
+    """fp32 smoke models (routing, capacity, recurrent states) on the card
+    against the same weights on the CPU, prefill and 3 decode steps."""
+    cfg = get_smoke_config(arch).scaled(compute_dtype=torch.float32)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    cpu = Model(cfg).load({n: p.cpu() for n, p in model.named_parameters()})
+    s = MOE_AND_RECURRENT[arch]
+    toks = torch.randint(0, cfg.vocab_size, (2, s),
+                         generator=torch.Generator().manual_seed(1))
+    got, gcache = model.prefill(toks.to(cuda), s + 3)
+    want, ccache = cpu.prefill(toks, s + 3)
+    torch.testing.assert_close(got.cpu(), want, **_tol(torch.float32))
+    for tok in toks[:, :3].T[:, :, None]:
+        got, gcache = model.decode_step(gcache, tok.to(cuda))
+        want, ccache = cpu.decode_step(ccache, tok)
+        torch.testing.assert_close(got.cpu(), want, **_tol(torch.float32))
+    for st, ref in zip(gcache.blocks, ccache.blocks):
+        for a, b in zip(st, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", list(MOE_AND_RECURRENT))
+def test_moe_and_recurrent_decode_graphs_are_the_eager_steps(cuda, arch):
+    """bf16 smoke models: an eager decode step syncs no value to the host
+    (``set_sync_debug_mode("error")``), and 16 replays of the captured
+    step equal 16 eager greedy steps bit for bit, logits, tokens and every
+    recurrent state."""
+    from repro_torch.inference.engine import DecodeGraph
+    from repro_torch.inference.sampling import sample
+    cfg = get_smoke_config(arch)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    s = MOE_AND_RECURRENT[arch]
+    toks = torch.randint(0, cfg.vocab_size, (3, s), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(4))
+    graph = DecodeGraph(model, 3, s + 20)
+    logits, cache = model.prefill(toks, s + 20)
+    tok = sample(logits, vocab_size=cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.decode_step(cache, tok)
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = [(logits.clone(), tok)]
+    for _ in range(15):
+        logits, cache = model.decode_step(cache, tok)
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+        want.append((logits.clone(), tok))
+    logits, _ = model.prefill(toks, cache=graph.cache)
+    graph.start(sample(logits, vocab_size=cfg.vocab_size))
+    for i, (wl, wt) in enumerate(want):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph.logits, wl), i
+        assert torch.equal(graph.tok, wt), i
+    assert int(graph.cache.pos_t) == s + 16
+    for st, ref in zip(graph.cache.blocks, cache.blocks):
+        if type(st).__name__ != "KVCache":
+            assert all(torch.equal(a, b) for a, b in zip(st, ref))

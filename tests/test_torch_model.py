@@ -1,6 +1,8 @@
 """The torch model against the JAX model: configs, attention, and the
 llama3.1-8b smoke model's prefill logits, KV caches and decode logits, with
-the JAX weights converted through ``params_from_jax``.
+the JAX weights converted through ``params_from_jax``; the MoE and
+recurrent smoke models (phi3.5-moe, llama4-maverick, xlstm, jamba) in fp32,
+their recurrent states included.
 
 fp32 compute is held at 1e-4: both sides run the same math and only the
 summation order differs.  bf16 compute cannot be held at 2e-2: rounding the
@@ -27,16 +29,19 @@ from repro.models.transformer import Model as JaxModel
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
-from repro_torch.models.config import FFN_MOE, MIXER_MAMBA, BlockSpec
 from repro_torch.models.transformer import Model
 from repro_torch.weights import params_from_jax
 
 ARCH = "llama3.1-8b"
 PORTED = ("llama3.1-8b", "llama3.2-3b", "qwen2.5-32b", "command-r-35b",
-          "qwen3-0.6b")
-NOT_PORTED = ("llama4-maverick-400b-a17b", "phi3.5-moe-42b-a6.6b",
-              "jamba-1.5-large-398b", "xlstm-125m", "whisper-medium",
-              "internvl2-1b")
+          "qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
+          "xlstm-125m", "jamba-1.5-large-398b")
+NOT_PORTED = ("whisper-medium", "internvl2-1b")
+# the smoke models of the MoE and recurrent blocks, with a prompt length
+# their chunked scans take (Mamba's chunk is 16)
+MOE_AND_RECURRENT = {"phi3.5-moe-42b-a6.6b": 12,
+                     "llama4-maverick-400b-a17b": 12, "xlstm-125m": 12,
+                     "jamba-1.5-large-398b": 16}
 B, S, N_DECODE = 2, 12, 4
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -61,7 +66,7 @@ def _pair(dtype_name, arch=ARCH):
     for block in params["blocks"]:
         for name, base in (("bq", 0.0), ("bk", 0.0), ("bv", 0.0),
                            ("q_norm", 1.0), ("k_norm", 1.0)):
-            if name in block["attn"]:
+            if name in block.get("attn", {}):
                 a = block["attn"][name]
                 block["attn"][name] = jnp.asarray(
                     base + 0.1 * rng.standard_normal(a.shape), a.dtype)
@@ -103,10 +108,14 @@ def test_other_archs_are_not_ported_yet():
         get_config("gpt-2")
 
 
-@pytest.mark.parametrize("period", [(BlockSpec(ffn=FFN_MOE),),
-                                    (BlockSpec(mixer=MIXER_MAMBA),)])
-def test_model_refuses_blocks_it_does_not_run(period):
-    cfg = get_smoke_config(ARCH).scaled(period=period)
+@pytest.mark.parametrize("path", [dict(n_encoder_layers=2),
+                                  dict(frontend="vision"),
+                                  dict(sliding_window=64)],
+                         ids=["encoder-decoder", "vision", "sliding-window"])
+def test_model_refuses_blocks_it_does_not_run(path):
+    """Every block kind runs; the paths still to port are refused, naming
+    ROADMAP."""
+    cfg = get_smoke_config(ARCH).scaled(**path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg)
 
@@ -179,9 +188,10 @@ def test_attention_matches_jax(variant):
 
 
 # -------------------------------------------------------------- whole model --
-def _serve_both(dtype_name, arch=ARCH):
+def _serve_both(dtype_name, arch=ARCH, S=S):
     """Prefill plus N_DECODE teacher-forced decode steps in both packages.
-    Returns the logits of each step and the final KV caches, as numpy."""
+    Returns the logits of each step and the final decode states (KV
+    caches and recurrent states), as numpy."""
     jmodel, params, tmodel = _pair(dtype_name, arch)
     cfg = tmodel.cfg
     toks = _tokens(1, (B, S), cfg.vocab_size)
@@ -204,8 +214,9 @@ def _serve_both(dtype_name, arch=ARCH):
         jl.append(_np(jlogits))
         tl.append(_np(tlogits))
     assert tcache.pos == S + N_DECODE
-    for jkv, tkv in zip(jcache.blocks, tcache.blocks):
-        assert tuple(tkv.k.shape) == jkv.k.shape
+    for jst, tst in zip(jcache.blocks, tcache.blocks):
+        assert type(tst).__name__ == type(jst).__name__
+        assert [tuple(t.shape) for t in tst] == [j.shape for j in jst]
     jkv = [_np(t) for kv in jcache.blocks for t in kv]
     tkv = [_np(t) for kv in tcache.blocks for t in kv]
     return (np.stack(jl), jkv), (np.stack(tl), tkv)
@@ -225,6 +236,22 @@ def test_other_dense_archs_match_jax_fp32(arch):
     (jl, jkv), (tl, tkv) = _serve_both("float32", arch)
     np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
     for j, t in zip(jkv, tkv):
+        np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", list(MOE_AND_RECURRENT))
+def test_moe_and_recurrent_archs_match_jax_fp32(arch):
+    """phi3.5-moe (MoE top-2 every block), llama4-maverick (dense and MoE
+    top-1 in turns), xlstm (sLSTM and mLSTM, no FFN, tied embeddings) and
+    jamba (Mamba, attention at position 3, MoE at odd positions) at smoke
+    size, fp32 at 1e-4: logits of prefill and every decode step, and
+    every state (KV caches, Mamba's conv carry and SSM state, mLSTM's C
+    and n, sLSTM's c, n and h)."""
+    (jl, jst), (tl, tst) = _serve_both("float32", arch,
+                                       S=MOE_AND_RECURRENT[arch])
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+    assert len(jst) == len(tst)
+    for j, t in zip(jst, tst):
         np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-4)
 
 
@@ -392,3 +419,79 @@ def test_prefill_fills_a_given_cache_in_place():
         assert torch.equal(kv.v, ref.v)
     with pytest.raises(ValueError, match="cannot take"):
         model.prefill(toks[:1], cache=given)
+
+
+# ---------------------------------------- MoE and recurrent blocks, model --
+@pytest.mark.parametrize("arch", list(MOE_AND_RECURRENT))
+def test_parameters_keep_the_jax_names_and_types(arch):
+    """``named_parameters()`` are the JAX pytree's leaves, named as
+    ``params_from_jax`` names them (``moe.router`` beside
+    ``moe.experts.w_gate``), with the same shapes; under bf16 compute the
+    norm scales and Mamba's A_log, D and dt_bias stay float32."""
+    jcfg = jax_get_smoke_config(arch)
+    tcfg = get_smoke_config(arch)
+    params = JaxModel(jcfg).init(jax.random.key(0))
+    want = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu")
+    model = Model(tcfg).load(want)
+    got = dict(model.named_parameters())
+    assert set(got) == set(want)
+    fp32 = ("scale", "A_log", "D", "dt_bias")
+    for name, t in got.items():
+        assert t.shape == want[name].shape, name
+        key = name.rsplit(".", 1)[1]
+        assert t.dtype == (torch.float32 if key in fp32
+                           else torch.bfloat16), name
+    drawn = Model(tcfg).init(torch.Generator().manual_seed(0))
+    assert {n: t.shape for n, t in drawn.named_parameters()} == \
+        {n: t.shape for n, t in got.items()}
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-1.5-large-398b"])
+def test_prefill_into_a_used_cache_starts_from_zero_states(arch):
+    """A cache that served one prompt and some decode steps, filled again
+    by ``prefill(cache=...)``: no state of the first prompt carries into
+    the second; logits and every state equal a fresh prefill's."""
+    cfg = get_smoke_config(arch)
+    model = Model(cfg).init(torch.Generator().manual_seed(5))
+    s = MOE_AND_RECURRENT[arch]
+    first = torch.from_numpy(_tokens(9, (B, s), cfg.vocab_size)).long()
+    second = torch.from_numpy(_tokens(10, (B, s), cfg.vocab_size)).long()
+    _, cache = model.prefill(first, s + 4)
+    for _ in range(3):
+        _, cache = model.decode_step(cache, first[:, -1:])
+    want, fresh = model.prefill(second, s + 4)
+    got, cache = model.prefill(second, cache=cache)
+    assert torch.equal(got, want)
+    assert cache.pos == int(cache.pos_t) == s
+    for st, ref in zip(cache.blocks, fresh.blocks):
+        assert all(torch.equal(a, b) for a, b in zip(st, ref))
+    tok = second[:, -1:]
+    a, _ = model.decode_step(cache, tok)
+    b, _ = model.decode_step(fresh, tok)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", list(MOE_AND_RECURRENT))
+def test_norms_fuse_with_the_adds_of_every_block_kind(arch, monkeypatch):
+    """One plain norm a forward; a block with an FFN (dense or MoE) runs
+    two fused norms, one without (xlstm's) one: its mixer's add fused with
+    the next block's norm1."""
+    calls = {"rmsnorm": 0, "add_rmsnorm": 0}
+    for name in calls:
+        fn = getattr(tlayers, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tlayers, name, counted)
+    cfg = get_smoke_config(arch)
+    fused = sum(1 if cfg.d_ff == 0 and b.ffn != "moe" else 2
+                for b in cfg.period) * cfg.n_periods
+    assert fused == (cfg.n_layers if arch == "xlstm-125m"
+                     else 2 * cfg.n_layers)
+    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    s = MOE_AND_RECURRENT[arch]
+    _, cache = model.prefill(torch.zeros((1, s), dtype=torch.long), s + 2)
+    assert calls == {"rmsnorm": 1, "add_rmsnorm": fused}
+    model.decode_step(cache, torch.zeros((1, 1), dtype=torch.long))
+    assert calls == {"rmsnorm": 2, "add_rmsnorm": 2 * fused}
