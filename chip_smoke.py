@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's two paths on one NVIDIA card: serving
 the five dense configs (llama3.1-8b, llama3.2-3b, qwen3-0.6b, qwen2.5-32b,
-command-r-35b) and the MoE and recurrent ones (phi3.5-moe,
-llama4-maverick, xlstm-125m, jamba), and the ALA pipeline (paper Alg 1-8)
-on the paper's data and on the rows the card measures.
+command-r-35b), the MoE and recurrent ones (phi3.5-moe,
+llama4-maverick, xlstm-125m, jamba), whisper-medium's encoder-decoder
+path and internvl2-1b's vision stub, and the ALA pipeline (paper Alg
+1-8) on the paper's data and on the rows the card measures.
 
     python3 chip_smoke.py
 
@@ -140,7 +141,27 @@ Phases, each printing its own lines:
     llama4-maverick at one period and xlstm-125m whole through
     ``measure_arch`` as phase [10] runs it, launches counted exactly
     (its rows are printed, not fed to phase [11]);
-15. the kernel table as one JSON line (``main_path`` false for
+15. whisper-medium (24 encoder and 24 decoder layers over 1,500 stub
+    frames, cross attention) and internvl2-1b (24 layers, 256 stub
+    patches before the prompt): (a) the kernels at their new shapes
+    against their plain versions: K2 with a key length of its own (Sq 1,
+    16, 128, 512 against Sk 63, 64, 65, 1,500, causal and full), at S =
+    Sk = 1,500 (the encoder, a ragged tail) and on strided views with NaN
+    around them, at G 1 (16/16 heads) and G 7 (14/2); K3 over a
+    1,500-slot cache at pos 0, 700 and 1,499 (cross attention in a decode
+    step) from a device tensor; K1 at d 896; (b) timed beside their
+    bounds, plain versions and SDPA: K2 at the encoder's (B 16, S 1,500,
+    full), the cross prefill's (B 16, Sq 512, Sk 1,500) and internvl2's
+    prefill (B 16, S 768, G 7), K3 at cross decode (B 16, T 1,500) and
+    the two models' self decode (G 1, G 7), K1 at d 896; (c) both models
+    at full width cut to 2 layers (whisper 2 encoder and 2 decoder
+    layers, all 1,500 frames) card against CPU in bf16, 16 graph replays
+    bit-equal to eager steps (cross K/V included), the captured step's
+    K1/K3 nodes, an eager step under ``set_sync_debug_mode("error")``;
+    (d) both whole through ``measure_arch`` as phase [10] runs a model,
+    exact launches, a graphed step beside its bound (rows printed, not
+    fed to phase [11]);
+16. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
 
@@ -253,6 +274,19 @@ K4_REG = (114, 16, 7, 16, 64)
 # the online phase's SA budgets (the default SAConfig's 150 iterations cut
 # for time)
 ONLINE_SA = dict(n_iters=10, warm_iters=5)
+# phase [15]: whisper-medium and internvl2-1b, at 2 layers (card against
+# CPU) and whole (measure_arch); their (H, KV): G 1 and G 7, Dh 64.  Both
+# are held in fp32 (MODEL_TOL), bf16 printed beside it: bf16 rounding
+# alone moves their 2-layer logits by 0.021 to 0.026 on one CPU, more
+# than bf16's 2e-2
+ENCDEC = (("whisper-medium", dict(n_layers=2, n_encoder_layers=2)),
+          ("internvl2-1b", dict(n_layers=2)))
+ENCDEC_HEADS = ((16, 16), (14, 2))
+# K2 with a key length of its own: query rows against key rows (whisper's
+# 1,500 frames, and around one 64-key tile)
+CROSS_SQ = (1, 16, 128, 512)
+CROSS_SK = (63, 64, 65, 1500)
+WIDTH_VLM = 896   # K1 at internvl2's d_model
 
 
 def _smi() -> str:
@@ -290,9 +324,9 @@ class Checks:
         if not _close(got, want, dtype):
             self.failed.append(f"{case} {key} err {_err(got, want):.3g}")
 
-    def report(self):
+    def report(self, tag="[3]"):
         errs = ", ".join(f"{k} max err {v:.3g}" for k, v in self.err.items())
-        print(f"[3] {self.name}: {self.n} cases against the plain version, "
+        print(f"{tag} {self.name}: {self.n} cases against the plain version, "
               f"{errs} (tolerance fp32 2e-5, bf16 2e-2): "
               f"{'FAIL ' + '; '.join(self.failed) if self.failed else 'ok'}")
         return not self.failed
@@ -332,53 +366,61 @@ def _ptxas_summary(log: str):
 def time_ms(fn, arg_sets, iters=60):
     """Mean ms per call of ``fn(*args)`` with CUDA events after a warm-up
     pass, cycling through ``arg_sets`` so that inputs larger in all than the
-    L2 arrive cold."""
-    for args in arg_sets * 2:
-        fn(*args)
+    L2 arrive cold.  Each call's output is held until its set comes round
+    again, so outputs rotate through as many buffers as the inputs: an
+    output the allocator handed back at once would lie in the same L2
+    lines each call, its writes never reaching the memory."""
+    n = len(arg_sets)
+    outs = [None] * n
+    for i, args in enumerate(arg_sets * 2):
+        outs[i % n] = fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(iters):
-        fn(*arg_sets[i % len(arg_sets)])
+        outs[i % n] = fn(*arg_sets[i % n])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
 def device_ms(fn, arg_sets, kernel=None, calls=20, passes=3):
-    """Device ms per launch of the CUDA kernels whose names hold ``kernel``,
-    or, with ``kernel=None``, device ms of all the work of one call, from
-    one torch.profiler pass over ``calls`` calls of ``fn`` after a warm-up.
-    A pass whose trace holds no such kernel (the tracer now and then
-    returns one without device events) is made again, up to ``passes`` in
-    all; then it raises."""
+    """Device ms per launch of the CUDA kernels whose names hold ``kernel``
+    ("" matches every kernel), or, with ``kernel=None``, device ms of all
+    the work of one call, from
+    one torch.profiler pass over ``calls`` calls of ``fn`` after a warm-up,
+    outputs held as ``time_ms`` holds them.  A pass whose trace holds no
+    such kernel (the tracer now and then returns one without device
+    events) is made again, up to ``passes`` in all; then it raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for args in arg_sets:
-        fn(*args)
+    n = len(arg_sets)
+    outs = [fn(*args) for args in arg_sets]
     torch.cuda.synchronize()
     for _ in range(passes):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(calls):
-                fn(*arg_sets[i % len(arg_sets)])
+                outs[i % n] = fn(*arg_sets[i % n])
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and (kernel is None or kernel in e.name)]
         if events:
-            n = calls if kernel is None else len(events)
-            return sum(e.device_time_total for e in events) / 1e3 / n
+            per = calls if kernel is None else len(events)
+            return sum(e.device_time_total for e in events) / 1e3 / per
     raise RuntimeError(f"{passes} traces show no device work of {kernel}")
 
 
 def _copy_device_ms(nbytes, n_sets):
     """Device ms of one ``copy_`` that reads and writes ``nbytes`` in all,
     on ``n_sets`` buffers in turn: what the card's memory gives a kernel
-    that only moves those bytes (a yardstick for bytes-bound kernels)."""
+    that only moves those bytes (a yardstick for bytes-bound kernels).
+    A call is one kernel, so it is read a launch (``kernel=""`` matches
+    every kernel): a trace that lost records does not lower it."""
     n = nbytes // 4  # bf16 elements read (and as many written)
     sets = [(torch.empty(n, dtype=BF16, device="cuda"),
              torch.ones(n, dtype=BF16, device="cuda")) for _ in range(n_sets)]
-    return device_ms(lambda dst, src: dst.copy_(src), sets)
+    return device_ms(lambda dst, src: dst.copy_(src), sets, kernel="")
 
 
 def _n_sets(nbytes):
@@ -1025,6 +1067,13 @@ def ala_phase(smi):
     return ok and all(checks.values()), launches, got["medape"]
 
 
+def _flash_want(q, k, v, causal):
+    """K2's plain version on (B, S, H, Dh) tensors."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=causal).transpose(1, 2)
+
+
 def _decode_want(q, k, v, pos):
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     b, h, dh = q.shape
@@ -1262,7 +1311,46 @@ def k1_timings(gen, rows, d):
     return out
 
 
-def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False):
+def k2_timing(gen, bb, sq, sk, h, kv, dh, causal):
+    """K2 at ``bb`` sequences of ``sq`` query rows against ``sk`` key rows,
+    bf16, timed beside its plain version and SDPA (whose ``is_causal``
+    is the same top-left mask where Sq != Sk).  The bound counts each
+    input read once, the output written once, and the products of the
+    (row, key) pairs the mask keeps."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    nbytes = 2 * bb * (2 * sq * h + 2 * sk * kv) * dh
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
+    sets = [(_randn(gen, (bb, sq, h, dh), BF16),
+             _randn(gen, (bb, sk, kv, dh), BF16),
+             _randn(gen, (bb, sk, kv, dh), BF16))
+            for _ in range(_n_sets(nbytes))]
+    q, k, v = sets[0]
+
+    def fa(q, k, v):
+        return fa_ops.flash_attention(q, k, v, causal=causal)
+
+    def fa_plain(q, k, v):
+        return _flash_want(q, k, v, causal)
+
+    def fa_lib(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+
+    rows = f"S{sq}" if sq == sk else f"Sq{sq} Sk{sk}"
+    return dict(
+        name="flash_attention",
+        shape=(f"B{bb} {rows} H{h} KV{kv} Dh{dh} bf16"
+               + ("" if causal else " full")),
+        check=(fa(q, k, v), fa_plain(q, k, v)),
+        ms=time_ms(fa, sets), plain_ms=time_ms(fa_plain, sets),
+        library_ms=time_ms(fa_lib, sets),
+        device_ms=device_ms(fa, sets, "flash_fwd"),
+        library_device_ms=device_ms(fa_lib, sets),
+        bound=_bound(nbytes, 4 * bb * h * dh * pairs, PEAK_BF16))
+
+
+def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False, tag="[4]"):
     """K3 at the last decode step of a ``t``-slot cache (pos t - 1), bf16,
     timed beside its plain version and SDPA over the live positions;
     prints its split plan, achieved bandwidth and (``by_split``) its
@@ -1288,7 +1376,8 @@ def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False):
             q[:, :, None], k[:, :pos + 1].transpose(1, 2),
             v[:, :pos + 1].transpose(1, 2), enable_gqa=True)
 
-    # every kernel of a call
+    # K3 is one kernel a call: its device ms a launch, which a trace that
+    # drops a kernel record does not lower (a sum over the calls would)
     g = h // kv
     n_split, rows = da_kernel.split_plan(bb, kv, g, pos,
                                          da_kernel.sm_count(0))
@@ -1298,7 +1387,7 @@ def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False):
         check=(da(q, k, v), da_plain(q, k, v)),
         ms=time_ms(da, sets), plain_ms=time_ms(da_plain, sets),
         library_ms=time_ms(da_lib, sets),
-        device_ms=device_ms(da, sets),
+        device_ms=device_ms(da, sets, "decode_attn"),
         library_device_ms=device_ms(da_lib, sets),
         bound=_bound(nbytes, 4 * bb * h * dh * (pos + 1), PEAK_BF16))
     rate = nbytes / tm["device_ms"] / 1e6
@@ -1308,7 +1397,7 @@ def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False):
     by = "" if not by_split else "; device ms at n_split " + ", ".join(
         f"{n} {device_ms(lambda *x, n=n: _decode_split(*x, pos, n), sets):.4f}"
         for n in (1, 2, 4, 8))
-    print(f"[4] decode_attention B{bb} pos{pos} H{h} KV{kv} (G {g}): "
+    print(f"{tag} decode_attention B{bb} pos{pos} H{h} KV{kv} (G {g}): "
           f"n_split {n_split} of {rows} positions, grid ({kv * chunks}, "
           f"{bb}, {n_split}) = {kv * chunks * bb * n_split} blocks of 256 "
           f"threads in clusters of {n_split}, {g} of "
@@ -1319,23 +1408,73 @@ def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False):
     return tm
 
 
-def _step_counts(cfg):
-    """K1 plain, K1 fused and attention layers of one forward of ``cfg``:
-    one plain norm (block 0's norm1) and, with QK-norm, 2 an attention
-    layer; 2 fused norms a block with an FFN (dense or MoE), 1 without
-    (its mixer's add fused with the next norm); K2/K3 once an attention
-    layer."""
+def print_timing(tag, tm, smi):
+    """One line of a kernel's timing (``k1_timings``, ``k2_timing``,
+    ``k3_timing`` and the K4 timings), its error already in ``err``."""
+    bound_ms, bound_by = tm["bound"]
+    lib_ms = tm["library_ms"] if tm["library_ms"] is not None \
+        else tm.get("two_call_ms")
+    library = ("none" if lib_ms is None else
+               f"{tm.get('library_call', '')} {lib_ms:.4f} ms (device "
+               f"{tm['library_device_ms']:.4f} ms a call)")
+    copy = ("" if "copy_device_ms" not in tm else
+            f", copy_ of the same bytes {tm['copy_device_ms']:.4f} "
+            f"device ms")
+    searched = ("" if "searched" not in tm else
+                f", {tm['searched']} nodes searched")
+    print(f"{tag} {tm['name']} {tm['shape']}: kernel {tm['ms']:.4f} ms "
+          f"(device {tm['device_ms']:.4f} ms a call), bound "
+          f"{bound_ms:.3g} ms ({bound_by}{searched}), plain "
+          f"{tm['plain_ms']:.4f} ms, library {library}{copy}, max err "
+          f"{tm['err']:.3g} [{smi}]")
+
+
+def _step_counts(cfg, prefill=False):
+    """K1 plain, K1 fused and attention launches of one forward of ``cfg``
+    (a decode step; with ``prefill`` a prompt): one plain norm (block 0's
+    norm1) and, with QK-norm, 2 an attention layer; 2 fused norms a block
+    with an FFN (dense or MoE), 1 without (its mixer's add fused with the
+    next norm), one more a decoder layer with cross attention (the
+    mixer's add fused with cross_norm); K2/K3 once an attention layer,
+    twice with cross attention.  An encoder-decoder model's prompt also
+    runs the encoder: one plain norm, 2 fused norms and one K2 a layer."""
     n_attn = sum(b.mixer == "attn" for b in cfg.period) * cfg.n_periods
+    cross = int(cfg.is_encdec)
     fused = sum(2 if b.ffn == "moe" or (b.ffn == "dense" and cfg.d_ff > 0)
                 else 1 for b in cfg.period) * cfg.n_periods
-    return 1 + 2 * n_attn * cfg.qk_norm, fused, n_attn
+    plain = 1 + 2 * n_attn * cfg.qk_norm
+    fused, attn = fused + cross * cfg.n_layers, n_attn * (1 + cross)
+    if prefill and cross:
+        plain, fused = plain + 1, fused + 2 * cfg.n_encoder_layers
+        attn += cfg.n_encoder_layers
+    return plain, fused, attn
 
 
-def _served(model, toks, steps):
-    """Last-token logits of a prefill of ``toks`` and a decode step for
+def _frontend_inputs(cfg, b, text, seed, device="cpu"):
+    """What a prefill of ``b`` prompts of ``text`` tokens takes besides
+    them, drawn by ``models.io.make_batch``: {} for a text-only model,
+    whisper's ``frames`` or internvl2's ``patches``; and the positions the
+    sequence takes (the patches come first)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models.io import make_batch
+    seq = text + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    if cfg.frontend == "none":
+        return {}, seq
+    batch = make_batch(cfg, ShapeSpec("prefill", seq, b, "prefill"), seed,
+                       device)
+    batch.pop("tokens")
+    return batch, seq
+
+
+def _served(model, toks, steps, extra=None, seq=None):
+    """Last-token logits of a prefill of ``toks`` (with ``extra``, the
+    frames or patches; ``seq`` positions in all) and a decode step for
     each of ``steps``, as float32 on the host."""
     dev = model.device
-    logits, cache = model.prefill(toks.to(dev), toks.shape[1] + len(steps))
+    seq = seq or toks.shape[1]
+    logits, cache = model.prefill(toks.to(dev), seq + len(steps),
+                                  **{k: t.to(dev) for k, t in
+                                     (extra or {}).items()})
     out = [logits.float().cpu()]
     for tok in steps:
         logits, cache = model.decode_step(cache, tok.to(dev))
@@ -1345,14 +1484,16 @@ def _served(model, toks, steps):
 
 def model_checks(tag, label, cfg, hold=BF16) -> bool:
     """One model on the card through the kernels against the same weights
-    on the CPU through the plain versions, prefill of 2 x 64 tokens and 4
+    on the CPU through the plain versions, prefill of 2 x 64 tokens (and
+    the frames or patches an encoder-decoder or vision model takes) and 4
     decode steps: in bf16 within 2e-2, or (``hold`` FP32) computed in
     fp32 on the bf16 weights within 1e-3, where bf16 rounding alone
     moves the model's logits by more than 2e-2 (the CPU's own bf16
     against its fp32 is printed beside it).  Then its decode step
-    replayed as a CUDA graph against 16 eager greedy steps, logits, tokens
-    and recurrent states bit for bit, and the captured step's K1 and K3
-    nodes counted from the graph (``_step_counts``); the first eager step
+    replayed as a CUDA graph against 16 eager greedy steps, logits, tokens,
+    recurrent states and cross K/V bit for bit, and the captured step's K1
+    and K3 nodes counted from the graph (``_step_counts``); the first eager
+    step
     runs under ``torch.cuda.set_sync_debug_mode("error")``, which raises
     at a synchronisation with the host."""
     from repro_torch.inference.engine import DecodeGraph
@@ -1366,16 +1507,19 @@ def model_checks(tag, label, cfg, hold=BF16) -> bool:
     cpu_gen = torch.Generator().manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=cpu_gen)
     steps = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=cpu_gen)
-    got, want = _served(card, toks, steps), _served(cpu, toks, steps)
+    extra, seq = _frontend_inputs(cfg, 2, 64, seed=1)
+    got = _served(card, toks, steps, extra, seq)
+    want = _served(cpu, toks, steps, extra, seq)
     note = ""
     if hold is FP32:
         c32 = cfg.scaled(compute_dtype=FP32)
         bf_errs = [_err(g, w) for g, w in zip(got, want)]
         got = _served(Model(c32).load({n: p.float() for n, p in
-                                       weights.items()}), toks, steps)
+                                       weights.items()}), toks, steps,
+                      extra, seq)
         want32 = _served(Model(c32).load({n: p.float() for n, p in
                                           cpu.named_parameters()}),
-                         toks, steps)
+                         toks, steps, extra, seq)
         own = max(_err(b, w) for b, w in zip(want, want32))
         want = want32
         note = (f"; in bf16, as served: card vs CPU max err "
@@ -1399,9 +1543,10 @@ def model_checks(tag, label, cfg, hold=BF16) -> bool:
     del cpu, weights
     # the same model's decode step replayed as a CUDA graph against 16
     # eager greedy steps from the same prompt: logits and tokens bit for bit
-    graph = DecodeGraph(card, 2, 81)
+    graph = DecodeGraph(card, 2, seq + 17)
     prompt = toks.cuda()
-    logits, ecache = card.prefill(prompt, 81)
+    extra = {k: t.cuda() for k, t in extra.items()}
+    logits, ecache = card.prefill(prompt, seq + 17, **extra)
     tok = sample(logits, vocab_size=cfg.vocab_size)
     eager, synced = [], "none"
     torch.cuda.synchronize()
@@ -1417,7 +1562,7 @@ def model_checks(tag, label, cfg, hold=BF16) -> bool:
         finally:
             torch.cuda.set_sync_debug_mode("default")
         eager.append((logits.clone(), tok))
-    logits, _ = card.prefill(prompt, cache=graph.cache)
+    logits, _ = card.prefill(prompt, cache=graph.cache, **extra)
     graph.start(sample(logits, vocab_size=cfg.vocab_size))
     same = []
     for logits, tok in eager:
@@ -1427,16 +1572,21 @@ def model_checks(tag, label, cfg, hold=BF16) -> bool:
     states = all(torch.equal(a, b) for st, ref in zip(graph.cache.blocks,
                                                       ecache.blocks)
                  if type(st).__name__ != "KVCache" for a, b in zip(st, ref))
+    cross = all(torch.equal(a, b) for st, ref in zip(graph.cache.cross or (),
+                                                     ecache.cross or ())
+                for a, b in zip(st, ref))
     names = graph.kernel_names()
     nodes = tuple(sum(k in n for n in names) for k in ("rmsnorm",
                                                        "decode_attn"))
     plain, fused, n_attn = _step_counts(cfg)
     want_nodes = (plain + fused, n_attn)
-    okg = (all(same) and len(same) == 16 and states
-           and int(graph.cache.pos_t) == 64 + 16 and nodes == want_nodes)
+    okg = (all(same) and len(same) == 16 and states and cross
+           and int(graph.cache.pos_t) == seq + 16 and nodes == want_nodes)
     print(f"{tag} {label}, 16 graph replays against 16 eager steps: "
           f"logits and tokens bit-equal at {sum(same)} of {len(same)} "
-          f"steps, recurrent states bit-equal {states}; the captured "
+          f"steps, recurrent states bit-equal {states}"
+          + (f", cross K/V bit-equal {cross}" if cfg.is_encdec else "")
+          + "; the captured "
           f"step's K1/K3 nodes {nodes}, expected {want_nodes}, of "
           f"{len(names)} kernel nodes; host syncs in an eager step: "
           f"{synced}: {'ok' if okg else 'FAIL'}")
@@ -1626,6 +1776,121 @@ def blocks_phase(smi):
     return ok and good, launches
 
 
+def encdec_kernel_checks(gen):
+    """Phase 15 (a): K2 with a key length of its own, at the encoder's
+    S = Sk = 1,500 and on strided views with NaN around them; K3 over a
+    1,500-slot cache; K1 at d 896; each against its plain version.
+    Returns ok."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
+
+    fa_c, da_c = Checks("flash_attention"), Checks("decode_attention")
+    rms_c, add_c, sums = Checks("rmsnorm"), Checks("add_rmsnorm"), []
+    for h, kv in ENCDEC_HEADS:
+        shapes = [(sq, sk) for sq in CROSS_SQ for sk in CROSS_SK]
+        for sq, sk in shapes + [(1500, 1500)]:
+            for causal in (True, False):
+                for dt in (FP32, BF16):
+                    q = _randn(gen, (2, sq, h, 64), dt)
+                    k = _randn(gen, (2, sk, kv, 64), dt)
+                    v = _randn(gen, (2, sk, kv, 64), dt)
+                    fa_c.add((f"Sq {sq} Sk {sk} H {h} KV {kv}", causal),
+                             fa_ops.flash_attention(q, k, v, causal=causal),
+                             _flash_want(q, k, v, causal), dt)
+    # q and k/v as strided views of buffers of other lengths whose other
+    # rows, heads and columns hold NaN: a read past Sq or Sk shows
+    for sq, sk in ((65, 1500), (129, 70)):
+        for causal in (True, False):
+            for dt in (FP32, BF16):
+                qbuf = torch.full((2, sq + 5, 10, 80), math.nan, dtype=dt,
+                                  device="cuda")
+                kbuf = torch.full((2, sk + 7, 6, 80), math.nan, dtype=dt,
+                                  device="cuda")
+                q = qbuf[:, 2:2 + sq, 1:9, 8:72]
+                k, v = kbuf[:, 3:3 + sk, 0:2, 8:72], kbuf[:, 3:3 + sk, 3:5, 8:72]
+                for x in (q, k, v):
+                    x.copy_(_randn(gen, x.shape, dt))
+                fa_c.add(("strided, NaN around", sq, sk, causal),
+                         fa_ops.flash_attention(q, k, v, causal=causal),
+                         _flash_want(q, k, v, causal), dt)
+    # K3 over the encoder's 1,500 frames, the position a device tensor
+    for h, kv in ENCDEC_HEADS:
+        for b in (1, 16):
+            for pos in (0, 700, 1499):
+                for dt in (FP32, BF16):
+                    q = _randn(gen, (b, h, 64), dt)
+                    k = _randn(gen, (b, 1500, kv, 64), dt)
+                    v = _randn(gen, (b, 1500, kv, 64), dt)
+                    pos_t = torch.full((1,), pos, dtype=torch.int64,
+                                       device="cuda")
+                    da_c.add((b, h, kv, 1500, pos),
+                             da_ops.decode_attention(q, k, v, pos_t),
+                             _decode_want(q, k, v, pos), dt)
+    # K1 at internvl2's width: a decode step's rows, a prefill's
+    for rows in (8, 2048, 16 * (256 + 512)):
+        for dt in (FP32, BF16):
+            for sdt in (FP32, BF16):
+                x, r = (_randn(gen, (rows, WIDTH_VLM), dt) for _ in range(2))
+                scale = _randn(gen, (WIDTH_VLM,), sdt)
+                rms_c.add((rows, WIDTH_VLM), rms_ops.rmsnorm(x, scale),
+                          rmsnorm_ref(x, scale), dt)
+                (s_got, y_got), (s_want, y_want) = (
+                    rms_ops.add_rmsnorm(x, r, scale),
+                    add_rmsnorm_ref(x, r, scale))
+                add_c.add((rows, WIDTH_VLM), y_got, y_want, dt)
+                sums.append(torch.equal(_bits(s_got), _bits(s_want)))
+    ok = all([c.report("[15]") for c in (fa_c, da_c, rms_c, add_c)])
+    print(f"[15] add_rmsnorm at d {WIDTH_VLM}: s bit for bit x + r in "
+          f"{sum(sums)} of {len(sums)} cases: "
+          f"{'ok' if all(sums) else 'FAIL'}")
+    return ok and all(sums)
+
+
+def encdec_phase(smi):
+    """Phase 15: whisper-medium's encoder-decoder path and internvl2-1b's
+    vision stub: the kernels at their new shapes against their plain
+    versions and timed (bf16, at the whole models' cell (512, 32, 16):
+    the encoder's 1,500 frames, the cross prefill, internvl2's prefill of
+    256 patches and 512 tokens, cross and self decode steps, K1 over
+    internvl2's prefill rows), both models at 2 layers card against CPU
+    (``model_checks``), then both whole through ``measure_arch``
+    (``measure_phase``).  Returns (ok, {kernel: launches} of the whole
+    models' main path)."""
+    from repro_torch.configs import get_config
+    gen = torch.Generator("cuda").manual_seed(15)
+    ok = encdec_kernel_checks(gen)
+    (h1, kv1), (h7, kv7) = ENCDEC_HEADS
+    timings = [k2_timing(gen, 16, 1500, 1500, h1, kv1, 64, False),
+               k2_timing(gen, 16, 512, 1500, h1, kv1, 64, False),
+               k2_timing(gen, 16, 256 + 512, 256 + 512, h7, kv7, 64, True),
+               k3_timing(gen, 16, 1500, h1, kv1, 64, smi, tag="[15]"),
+               k3_timing(gen, 16, 512 + 32, h1, kv1, 64, smi, tag="[15]"),
+               k3_timing(gen, 16, 256 + 512 + 32, h7, kv7, 64, smi,
+                         tag="[15]"),
+               *k1_timings(gen, 16 * (256 + 512), WIDTH_VLM)]
+    for tm in timings:
+        got, want = tm.pop("check")
+        tm["err"] = _err(got, want)
+        ok = _close(got, want, BF16) and ok
+        print_timing("[15]", tm, smi)
+    del timings
+    torch.cuda.empty_cache()
+    for arch, cut in ENCDEC:
+        cfg = get_config(arch)
+        label = (f"{arch} at {cut['n_layers']} of {cfg.n_layers} layers"
+                 + (f" and {cut['n_encoder_layers']} of "
+                    f"{cfg.n_encoder_layers} encoder layers"
+                    if "n_encoder_layers" in cut else ""))
+        ok = model_checks("[15]", label, cfg.scaled(**cut), FP32) and ok
+        gc.collect()
+        torch.cuda.empty_cache()
+    good, launches, _ = measure_phase(
+        "[15]", smi, [(arch, get_config(arch)) for arch, _ in ENCDEC])
+    return ok and good, launches
+
+
 # kernel kinds of a traced decode step, by name
 STEP_KINDS = (("K1", ("rmsnorm",)), ("K3", ("decode_attn",)),
               ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
@@ -1633,13 +1898,16 @@ STEP_KINDS = (("K1", ("rmsnorm",)), ("K3", ("decode_attn",)),
               ("gather/scatter", ("index", "scatter", "gather")))
 
 
-def trace_replays(tag, arch, model, graph, prompts, smi):
+def trace_replays(tag, arch, model, graph, prompts, smi, extra=None):
     """Traces 8 replays of ``graph`` (a warm-up pass of 8 first) from a
-    prefill of ``prompts`` into its cache: wall and device-busy ms, the
-    device ms by kernel kind (STEP_KINDS; the rest elementwise and
-    reductions) and the top kernels."""
+    prefill of ``prompts`` (and ``extra``, the frames or patches) into its
+    cache: wall and device-busy ms, the device ms by kernel kind
+    (STEP_KINDS; the rest elementwise and reductions) and the top
+    kernels."""
     toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
-    model.prefill(toks, cache=graph.cache)
+    model.prefill(toks, cache=graph.cache,
+                  **{k: torch.as_tensor(a).to("cuda", model.cfg.compute_dtype)
+                     for k, a in (extra or {}).items()})
     graph.start(toks[:, -1:])
 
     def replay8():
@@ -1664,16 +1932,47 @@ def trace_replays(tag, arch, model, graph, prompts, smi):
                       for name, n, ms in top[:6]) + f" [{smi}]")
 
 
+def _step_bytes(model, bb, live):
+    """Bytes a decode step of ``bb`` sequences reads at least, with
+    ``live`` cache positions: the decoder's weights (not the encoder's,
+    the vision projection or cross attention's K/V projections, which run
+    at prefill only; the embedding table once, as the tied LM head, or
+    else the untied head and not the table, of which a step reads bb
+    rows), the self K/V of the attention layers up to ``live`` and, with
+    an encoder, all of the cross K/V.  None for recurrent blocks, whose
+    states this does not count."""
+    cfg = model.cfg
+    if cfg.subquadratic:
+        return None
+    skip = ("enc_blocks.", "enc_norm.", "vis_proj")
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters()
+                  if not n.startswith(skip)
+                  and not n.endswith((".cross_attn.wk", ".cross_attn.wv"))
+                  and not (n == "embed.tok_embed" and not cfg.tie_embeddings))
+    n_attn = sum(b.mixer == "attn" for b in cfg.period) * cfg.n_periods
+    pos_bytes = (2 * bb * cfg.n_kv_heads * cfg.d_head
+                 * cfg.compute_dtype.itemsize)
+    cross = (cfg.n_layers * pos_bytes * cfg.encoder_seq if cfg.is_encdec
+             else 0)
+    return weights, n_attn * pos_bytes * live, cross
+
+
 def measure_phase(tag, smi, models):
     """Each ``(arch, cfg)`` of ``models`` at full width (phase [10]: the
     newer dense configs at full depth; phase [14]: the MoE and recurrent
-    ones, depth cut to fit), seeded random weights, through
-    ``measure_arch`` over phase [8]'s grid (the graphed engine), its
-    launches held to ``_step_counts``; each model, its caches and its
-    decode graphs freed before the next is drawn; 8 replays of the graphed
-    step at the step cell traced (``trace_replays``).  Returns (ok,
-    {kernel: launches}, {arch: rows})."""
+    ones, depth cut to fit; phase [15]: whisper-medium and internvl2-1b
+    whole, their stub frames or patches drawn with each request's
+    prompts), seeded random weights, through ``measure_arch`` over phase
+    [8]'s grid (the graphed engine), its launches held to
+    ``_step_counts``; each model, its caches and its decode graphs freed
+    before the next is drawn; a graphed decode step at the step cell
+    beside the bytes it reads (``_step_bytes``) and 8 of its replays
+    traced (``trace_replays``).  Returns (ok, {kernel: launches}, {arch:
+    rows})."""
     from repro_torch.bench.harness import measure_arch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models import io
     from repro_torch.inference.engine import ServingEngine
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1714,17 +2013,31 @@ def measure_phase(tag, smi, models):
         cell = (min(MEASURE_GRID["grid_ii"]), max(MEASURE_GRID["grid_oo"]),
                 max(MEASURE_GRID["grid_bb"]))
         engine = ServingEngine(model)
-        prompts = np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (cell[2], cell[0]))
-        res = engine.generate(prompts, cell[1])
+        seq = model.n_prefix + cell[0]
+        extra = io.draw(cfg, ShapeSpec("step", seq, cell[2], "prefill"),
+                        np.random.default_rng(1))
+        prompts = extra.pop("tokens")
+        res = engine.generate(prompts, cell[1], inputs=extra)
         step = res.decode_s / (cell[1] - 1)
+        encoder = ""
+        if cfg.is_encdec:  # the prefill's encoder alone, warm
+            frames = torch.as_tensor(extra["frames"]).to("cuda", BF16)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                model.encode(frames)
+                torch.cuda.synchronize()
+            encoder = (f" (the encoder over {cfg.encoder_seq} frames "
+                       f"{1e3 * (time.perf_counter() - t2):.1f} ms of it "
+                       f"alone)")
+            del frames
         # a cell: warm-up and reps prefills, one capture after one eager
-        # step; K1 as _step_counts a forward
-        plain, fused, n_attn = _step_counts(cfg)
-        pre = 1 + MEASURE_GRID["reps"]
-        fwd = cells * (pre + 2)
-        expect = [plain * fwd, fused * fwd, n_attn * pre * cells,
-                  n_attn * 2 * cells]
+        # step; K1 and K2 as _step_counts a prompt, K1 and K3 a step
+        first, then = _step_counts(cfg, prefill=True), _step_counts(cfg)
+        pre = (1 + MEASURE_GRID["reps"]) * cells
+        expect = [first[0] * pre + then[0] * 2 * cells,
+                  first[1] * pre + then[1] * 2 * cells, first[2] * pre,
+                  then[2] * 2 * cells]
         ii, oo, bb, thpt = rows.workload
         good = (len(rows) == cells * MEASURE_GRID["reps"] and grew == expect
                 and bool(np.all(np.isfinite(thpt) & (thpt > 0)))
@@ -1736,15 +2049,29 @@ def measure_phase(tag, smi, models):
                   f"experts of d_ff {cfg.expert_d_ff}, top-{cfg.top_k}")
         if cfg.attention_free:
             blocks = "+".join(b.mixer for b in cfg.period) + " blocks"
-        print(f"{tag} {arch}: {n_params / 1e9:.3f} B parameters "
+        if cfg.is_encdec:
+            blocks += (f", {cfg.n_encoder_layers} encoder layers over "
+                       f"{cfg.encoder_seq} frames")
+        elif model.n_prefix:
+            blocks += f", {model.n_prefix} patches before the prompt"
+        # the steps of the timed run read pos + 1 positions at pos = seq
+        # .. seq + oo - 2: seq + oo / 2 on average
+        read = _step_bytes(model, cell[2], seq + cell[1] / 2)
+        bound = "" if read is None else (
+            f" (bound {1e3 * sum(read) / PEAK_BYTES:.3f} ms: "
+            f"{sum(read) / 1e9:.2f} GB at 3.35 TB/s, of it weights "
+            f"{read[0] / 1e9:.2f}, self K/V {read[1] / 1e9:.2f}"
+            + (f", cross K/V {read[2] / 1e9:.2f}" if read[2] else "") + ")")
+        print(f"{tag} {arch}: {n_params / 1e9:.4f} B parameters "
               f"({cfg.n_layers} layers, d {cfg.d_model}, {blocks}, vocab "
               f"{cfg.vocab_size}), weights {weights / 1e9:.2f} GB, peak "
               f"while drawn {init_peak / 1e9:.2f} GB, init {t_init:.1f} s; "
               f"measure_arch {len(rows)} rows in {t_measure:.1f} s, peak "
               f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
               f"thpt {thpt.min():.1f} to {thpt.max():.1f} tok/s; a graphed "
-              f"decode step at (ii, oo, bb) = {cell} {1e3 * step:.2f} ms, "
-              f"its prefill {1e3 * res.prefill_s:.1f} ms [{smi}]")
+              f"decode step at (ii, oo, bb) = {cell} {1e3 * step:.3f} ms"
+              f"{bound}, its prefill {1e3 * res.prefill_s:.1f} ms{encoder} "
+              f"[{smi}]")
         for a in MEASURE_GRID["grid_ii"]:
             for o in MEASURE_GRID["grid_oo"]:
                 m = (ii == a) & (oo == o)
@@ -1754,7 +2081,7 @@ def measure_phase(tag, smi, models):
         print(f"{tag} {arch} launches rmsnorm/add_rmsnorm/flash/decode: "
               f"{grew}, expected {expect}: {'ok' if good else 'FAIL'}")
         trace_replays(tag, arch, model, engine.decode_graph(
-            cell[2], cell[0] + cell[1]), prompts, smi)
+            cell[2], seq + cell[1]), prompts, smi, extra)
         out[arch] = rows
         del model, engine
     gc.collect()
@@ -2117,7 +2444,6 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
     from repro_torch.models.transformer import Model
@@ -2187,10 +2513,6 @@ def main() -> int:
                 sums.append(torch.equal(_bits(s_got), _bits(s_want)))
     fa_c = Checks("flash_attention")
 
-    def flash_want(q, k, v, causal):
-        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal).transpose(1, 2)
-
     # the sweeps of test_kernels.py, the llama widths, the newer configs'
     # heads (16, 24, 40, 64 over 8) at S 128 and 512, and ragged S around
     # the 64-row tiles at every head size
@@ -2210,7 +2532,7 @@ def main() -> int:
                 v = _randn(gen, (b, s, kv, dh), dt)
                 fa_c.add((b, h, kv, s, dh, causal),
                          fa_ops.flash_attention(q, k, v, causal=causal),
-                         flash_want(q, k, v, causal), dt)
+                         _flash_want(q, k, v, causal), dt)
     # q, k, v as strided views into one buffer whose other rows, heads and
     # columns hold NaN: a read outside the views would reach the output
     for s in (65, 129):
@@ -2227,7 +2549,7 @@ def main() -> int:
                         x.copy_(_randn(gen, x.shape, dt))
                     fa_c.add(("strided, NaN around", s, dh, causal),
                              fa_ops.flash_attention(q, k, v, causal=causal),
-                             flash_want(q, k, v, causal), dt)
+                             _flash_want(q, k, v, causal), dt)
     da_c = Checks("decode_attention")
     decode_cases = [(2, 8, 2, 128, 64), (1, 4, 4, 512, 128),
                     (4, 16, 8, 256, 64), (3, 4, 2, 77, 16)]
@@ -2291,32 +2613,7 @@ def main() -> int:
               f"{k1_plan(8, dd)}")
     for ii, oo, bb in CELLS:
         # flash attention over the prompt, causal
-        shp_q, shp_kv = (bb, ii, h, dh), (bb, ii, kv, dh)
-        nbytes = 2 * bb * ii * (2 * h + 2 * kv) * dh
-        sets = [tuple(_randn(gen, sh, BF16) for sh in (shp_q, shp_kv, shp_kv))
-                for _ in range(_n_sets(nbytes))]
-        q, k, v = sets[0]
-
-        def fa_plain(q, k, v):
-            return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True)
-
-        def fa_lib(q, k, v):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
-
-        timings.append(dict(
-            name="flash_attention", shape=f"B{bb} S{ii} H{h} KV{kv} Dh{dh} bf16",
-            check=(fa_ops.flash_attention(q, k, v),
-                   fa_plain(q, k, v).transpose(1, 2)),
-            ms=time_ms(fa_ops.flash_attention, sets),
-            plain_ms=time_ms(fa_plain, sets), library_ms=time_ms(fa_lib, sets),
-            device_ms=device_ms(fa_ops.flash_attention, sets, "flash_fwd"),
-            library_device_ms=device_ms(fa_lib, sets),
-            bound=_bound(nbytes, 4 * bb * h * dh * ii * (ii + 1) // 2,
-                         PEAK_BF16)))
-        del sets, q, k, v
+        timings.append(k2_timing(gen, bb, ii, ii, h, kv, dh, True))
         # decode attention at the last step: the cache holds ii + oo - 1
         timings.append(k3_timing(gen, bb, ii + oo, h, kv, dh, smi,
                                  by_split=True))
@@ -2336,22 +2633,7 @@ def main() -> int:
                        "gbt_split": tm["err"] == 0.0,
                        "gbt_grow": tm["err"] == 0.0}.get(
                            tm["name"], _close(got, want, BF16))
-        bound_ms, bound_by = tm["bound"]
-        lib_ms = tm["library_ms"] if tm["library_ms"] is not None \
-            else tm.get("two_call_ms")
-        library = ("none" if lib_ms is None else
-                   f"{tm.get('library_call', '')} {lib_ms:.4f} ms (device "
-                   f"{tm['library_device_ms']:.4f} ms a call)")
-        copy = ("" if "copy_device_ms" not in tm else
-                f", copy_ of the same bytes {tm['copy_device_ms']:.4f} "
-                f"device ms")
-        searched = ("" if "searched" not in tm else
-                    f", {tm['searched']} nodes searched")
-        print(f"[4] {tm['name']} {tm['shape']}: kernel {tm['ms']:.4f} ms "
-              f"(device {tm['device_ms']:.4f} ms a call), bound "
-              f"{bound_ms:.3g} ms ({bound_by}{searched}), plain "
-              f"{tm['plain_ms']:.4f} ms, library {library}{copy}, max err "
-              f"{tm['err']:.3g} [{smi}]")
+        print_timing("[4]", tm, smi)
         # the JSON line reports each kernel at the first cell's prefill
         # shape, and K4's at the ALA predictor's first shape (gbt_grow: a
         # whole Alg 3 fit)
@@ -2573,7 +2855,16 @@ def main() -> int:
     print(f"[14] MoE and recurrent blocks: {'ok' if ok14 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # -- 15. result -----------------------------------------------------------
+    # -- 15. whisper-medium's encoder-decoder path, internvl2-1b's vision
+    # stub ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    ok15, grew = encdec_phase(smi)
+    for k, n in grew.items():
+        launches[k] += n
+    print(f"[15] encoder-decoder and vision: {'ok' if ok15 else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 16. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
                "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -2610,10 +2901,11 @@ def main() -> int:
               "[8] measure_arch": ok8, "[9] ALA": ok9,
               "[10] full depth": ok10, **results,
               "[14] MoE and recurrent blocks": ok14,
-              "[15] launches": all(
+              "[15] encoder-decoder and vision": ok15,
+              "[16] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())
-    print(f"[15] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+    print(f"[16] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
           + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not ok:
         failed = [name for name, good in phases.items() if not good]

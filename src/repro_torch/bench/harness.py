@@ -51,7 +51,10 @@ def measure_arch(arch: str, grid_ii: Optional[Sequence[int]] = None,
     """Sweep the engine over a grid on ``device`` (None: the GPU).
 
     ``model`` serves as given (already on ``device``); without it the
-    smoke-size ``arch`` is built from ``seed``.  ``None`` grids fall back
+    smoke-size ``arch`` is built from ``seed``.  A model with a stub
+    frontend (whisper's frames, internvl2's patches) gets them drawn
+    seeded with each request's prompts (``measure_throughput``); ``ii``
+    counts the prompt's tokens, not the patches before them.  ``None`` grids fall back
     to the CPU smoke defaults.  Rows carry the registry's schema: ``acc``
     names the hardware, ``back="repro-torch"``, ``prec`` the compute type.
     """

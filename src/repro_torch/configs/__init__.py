@@ -1,11 +1,11 @@
 """Architecture registry: ``get_config(arch_id)`` + smoke-size reductions.
 
-Only the archs the torch model can run are ported: the five dense ones
-(attention + SwiGLU blocks, with QKV bias, QK-norm and tied embeddings
-where their configs ask for them), the two MoE ones, xLSTM's recurrent
-blocks and jamba's Mamba + attention + MoE hybrid.  The encoder and
-vision archs keep their names here so that a lookup says where they
-stand instead of "unknown".
+Every arch of the JAX package: the five dense ones (attention + SwiGLU
+blocks, with QKV bias, QK-norm and tied embeddings where their configs
+ask for them), the two MoE ones, xLSTM's recurrent blocks, jamba's
+Mamba + attention + MoE hybrid, whisper's encoder-decoder and
+internvl2's vision frontend (both frontends stubs, as in the JAX
+package: the model takes precomputed frame or patch embeddings).
 """
 from __future__ import annotations
 
@@ -23,21 +23,13 @@ _MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "xlstm-125m": "xlstm_125m",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-medium": "whisper_medium",
+    "internvl2-1b": "internvl2_1b",
 }
 ARCHS = tuple(_MODULES)
 
-# Archs of the JAX package that later slices port (ROADMAP queue A).
-_NOT_YET_PORTED = (
-    "whisper-medium",
-    "internvl2-1b",
-)
-
 
 def _module(arch: str):
-    if arch in _NOT_YET_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported to torch yet; it comes "
-                       f"with a later slice (ROADMAP queue A). Ported: "
-                       f"{list(ARCHS)}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

@@ -4,7 +4,10 @@
 // flash_attention_bhsd (body _flash_kernel).  Same function: for query head
 // h, attend to KV head h / (H / KV) with an online softmax in fp32
 // (m, l, acc), mask value -1e30, l clamped at 1e-30; tiles above the
-// diagonal are skipped and the diagonal tile is masked elementwise.
+// diagonal are skipped and the diagonal tile is masked elementwise.  As
+// there, the keys have a length Sk of their own (cross attention reads an
+// encoder's Sk frames from Sq decoder positions), and the causal mask is
+// the top-left row >= col whatever Sk is.
 //
 // What bounds it on the H100: the work is 4 * B * H * Dh * S(S+1)/2 flops
 // against reading q, k, v and writing o once.  At both serving cells of
@@ -27,9 +30,9 @@
 //    empty; QK^T starts before V has landed).  It refills a stage once
 //    every warp has released it, so the copy of tile j + 1 runs under the
 //    products on tile j, and warpgroups drift apart instead of meeting at
-//    a block barrier each tile.  TMA reads nothing
-//    outside the (B, S, H | KV, Dh) view and fills rows past S with zeros
-//    (0 x NaN is NaN, so stale bits must never land);
+//    a block barrier each tile.  TMA reads nothing outside the (B, Sq |
+//    Sk, H | KV, Dh) views and fills rows past their ends with zeros (0 x
+//    NaN is NaN, so stale bits must never land);
 //  - the online softmax runs in registers on the accumulator fragments
 //    (row max and sum over the quad of lanes sharing a row, log2 domain);
 //    P is rounded to bf16 in registers as the A operand of P V, so scores
@@ -50,9 +53,9 @@
 // CUDA cores: the checks hold fp32 to 2e-5, which TF32 products would not
 // meet, and the serving path never sends fp32 here.
 //
-// Unlike the TPU kernel both read q, k, v in the model's (B, S, H | KV, Dh)
-// layout through strides (no transposed copies) and mask a ragged S
-// themselves (no padding to the tile size).
+// Unlike the TPU kernel both read q, k, v in the model's (B, Sq | Sk,
+// H | KV, Dh) layout through strides (no transposed copies) and mask a
+// ragged Sq or Sk themselves (no padding to the tile size).
 #include <cuda.h>
 
 #include "common.cuh"
@@ -67,7 +70,7 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* o;
-  int S, H, KV;
+  int Sq, Sk, H, KV;  // query rows, key rows, heads
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -119,13 +122,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_fp32(FlashParams p) {
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  repro::load_rows<T, DH, NT>(Qs, DH, q, p.q_ss, q0, p.S, BQ);
+  repro::load_rows<T, DH, NT>(Qs, DH, q, p.q_ss, q0, p.Sq, BQ);
   if (tid < BQ) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
 
-  int n_tiles = (p.S + BK - 1) / BK;
+  int n_tiles = (p.Sk + BK - 1) / BK;
   if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
 
   const int qk_c = tid % BK, qk_r = tid / BK;
@@ -137,7 +140,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_fp32(FlashParams p) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q is loaded; the last tile's P.V is done with KVs, Ps
-    repro::load_rows<T, DH, NT>(KVs, KP, k, p.k_ss, k0, p.S, BK);
+    repro::load_rows<T, DH, NT>(KVs, KP, k, p.k_ss, k0, p.Sk, BK);
     __syncthreads();
 
     float sc[SPT];
@@ -160,12 +163,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_fp32(FlashParams p) {
 #pragma unroll
     for (int j = 0; j < SPT; ++j) {
       const int r = qk_r + j * SSTEP;
-      const bool keep = col < p.S && (!p.causal || col <= q0 + r);
+      const bool keep = col < p.Sk && (!p.causal || col <= q0 + r);
       Ps[r * PP + qk_c] = keep ? sc[j] * p.scale : NEG_INF;
     }
     __syncthreads();  // scores are written and K is no longer read
 
-    repro::load_rows<T, DH, NT>(KVs, KP, v, p.v_ss, k0, p.S, BK);
+    repro::load_rows<T, DH, NT>(KVs, KP, v, p.v_ss, k0, p.Sk, BK);
     {  // online softmax: four threads per row, columns interleaved by 4
       const int r = tid >> 2, part = tid & 3;
       float* prow = Ps + r * PP;
@@ -217,7 +220,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_fp32(FlashParams p) {
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = pv_r + i * RSTEP;
-    if (q0 + r < p.S) {
+    if (q0 + r < p.Sq) {
       o[static_cast<int64_t>(q0 + r) * p.o_ss + pv_c] =
           acc[i] / fmaxf(l_s[r], 1e-30f);
     }
@@ -523,7 +526,7 @@ __global__ void __launch_bounds__(GNT, 2)
   const int kvh = h / (p.H / p.KV);
   bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  int n_tiles = (p.S + GK - 1) / GK;
+  int n_tiles = (p.Sk + GK - 1) / GK;
   if (p.causal) n_tiles = min(n_tiles, (q0 + 64 * NWG - 1) / GK + 1);
 
   // tile j into stage j % STAGES; K and V land on barriers of their own,
@@ -602,12 +605,12 @@ __global__ void __launch_bounds__(GNT, 2)
 
     // mask the ragged end and, on the diagonal, the future (only those
     // tiles; the scale is applied inside the exponent below)
-    if (k0 + GK > p.S || (p.causal && k0 + GK > wq0 + 16 * warp)) {
+    if (k0 + GK > p.Sk || (p.causal && k0 + GK > wq0 + 16 * warp)) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
         const int row = row0 + 8 * ((i >> 1) & 1);
-        if (col >= p.S || (p.causal && col > row)) s[i] = NEG_INF;
+        if (col >= p.Sk || (p.causal && col > row)) s[i] = NEG_INF;
       }
     }
 
@@ -688,7 +691,7 @@ __global__ void __launch_bounds__(GNT, 2)
   for (int i = lane; i < 16 * CH; i += 32) {
     const int rr = i / CH, c = i % CH;
     const int row = wq0 + 16 * warp + rr;
-    if (row < p.S)
+    if (row < p.Sq)
       *reinterpret_cast<uint4*>(o + static_cast<int64_t>(row) * p.o_ss +
                                 c * 8) =
           *reinterpret_cast<const uint4*>(Os + rr * DH + (c ^ (rr % SW)) * 8);
@@ -717,7 +720,7 @@ cudaError_t launch_fp32(const FlashParams& p, int B, cudaStream_t stream) {
   static bool configured = false;
   cudaError_t err = configure(flash_fwd_fp32<DH>, smem, configured);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
+  dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
   flash_fwd_fp32<DH><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -791,14 +794,14 @@ cudaError_t launch_bf16(const FlashParams& p, int B, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   Slots sq, sk, sv;
-  if ((err = make_map<DH>(&tq, &sq, p.q, p.S, p.H, B, p.q_ss, p.q_sh,
+  if ((err = make_map<DH>(&tq, &sq, p.q, p.Sq, p.H, B, p.q_ss, p.q_sh,
                       p.q_sb)) != cudaSuccess ||
-      (err = make_map<DH>(&tk, &sk, p.k, p.S, p.KV, B, p.k_ss, p.k_sh,
+      (err = make_map<DH>(&tk, &sk, p.k, p.Sk, p.KV, B, p.k_ss, p.k_sh,
                       p.k_sb)) != cudaSuccess ||
-      (err = make_map<DH>(&tv, &sv, p.v, p.S, p.KV, B, p.v_ss, p.v_sh,
+      (err = make_map<DH>(&tv, &sv, p.v, p.Sk, p.KV, B, p.v_ss, p.v_sh,
                       p.v_sb)) != cudaSuccess)
     return err;
-  const int n_q = (p.S + 64 * NWG - 1) / (64 * NWG);
+  const int n_q = (p.Sq + 64 * NWG - 1) / (64 * NWG);
   if (B > 65535 || n_q > 65535) return cudaErrorInvalidValue;
   dim3 grid(p.H, B, n_q);
   flash_fwd_bf16<DH><<<grid, GNT, smem, stream>>>(tq, tk, tv, p, sq, sk, sv);
@@ -815,17 +818,19 @@ cudaError_t launch(const FlashParams& p, int dtype, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
-// dimension of every tensor is contiguous.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  q and o hold Sq rows, k and v Sk.
+// Strides are in elements; the last dimension of every tensor is
+// contiguous.  Returns a cudaError_t.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int S, int H, int KV, int DH, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int Sq, int Sk, int H, int KV, int DH, int64_t q_sb, int64_t q_ss,
+    int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
     int causal, void* stream) {
-  FlashParams p{q,    k,    v,    o,    S,    H,    KV,   q_sb, q_ss,
-                q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
-                o_sh, scale, causal};
+  FlashParams p{q,    k,    v,    o,    Sq,   Sk,   H,    KV,   q_sb,
+                q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
+                o_ss, o_sh, scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (DH) {
     case 16: return launch<16>(p, dtype, B, st);

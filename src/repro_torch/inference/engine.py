@@ -10,8 +10,12 @@ Python dispatch.  On the CPU, decode is a plain Python loop of
 ``decode_step`` calls that update the decode cache in place.
 
 ``measure_throughput`` produces (ii, oo, bb, thpt) rows by running the
-model on the card.  Timers are ``time.perf_counter`` around work that ends
-in ``torch.cuda.synchronize()``; capture happens before them.
+model on the card.  A model with a stub frontend takes its frames or
+patches through ``generate``'s ``inputs`` (a hook the JAX engine lacks:
+it serves tokens only); ``measure_throughput`` draws them seeded with
+each request's prompts, as ``models.io`` draws a batch.  Timers are
+``time.perf_counter`` around work that ends in
+``torch.cuda.synchronize()``; capture happens before them.
 """
 from __future__ import annotations
 
@@ -22,8 +26,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.inference.sampling import sample
+from repro_torch.models import io
 from repro_torch.models.transformer import Model
 
 
@@ -49,8 +55,10 @@ class DecodeGraph:
     builds, function attributes and cuBLAS workspaces are set up outside
     it (its launches count like any other); the cache's states and
     ``pos_t`` are zeroed after.  Fill the cache with
-    ``model.prefill(..., cache=graph.cache)``.  The launch counters of the
-    captured kernels tick once, at capture, not at replays."""
+    ``model.prefill(..., cache=graph.cache)`` (with the frames where the
+    model takes them: their cross K/V land in the captured buffers too).
+    The launch counters of the captured kernels tick once, at capture,
+    not at replays."""
 
     @torch.inference_mode()
     def __init__(self, model: Model, batch: int, max_len: int):
@@ -175,14 +183,23 @@ class ServingEngine:
 
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
-                 max_len: Optional[int] = None) -> GenerationResult:
-        """prompts: (B, ii) integer token ids."""
+                 max_len: Optional[int] = None,
+                 inputs: Optional[Dict] = None) -> GenerationResult:
+        """prompts: (B, ii) integer token ids; ``inputs``: what else the
+        model's prefill takes (``frames`` or ``patches``, arrays or
+        tensors), moved to the device before the clock starts.  The cache
+        holds ``model.n_prefix`` positions before the prompt (the vision
+        stub's patches) and ``max_len`` in all."""
         b, ii = prompts.shape
-        max_len = max_len or (ii + max_new_tokens)
-        if ii + max_new_tokens - 1 > max_len:
-            raise ValueError(f"{ii} + {max_new_tokens} tokens need more than "
-                             f"{max_len} cache slots")
+        seq = self.model.n_prefix + ii
+        max_len = max_len or (seq + max_new_tokens)
+        if seq + max_new_tokens - 1 > max_len:
+            raise ValueError(f"{seq} + {max_new_tokens} positions need more "
+                             f"than {max_len} cache slots")
         vocab = self.model.cfg.vocab_size
+        extra = {k: torch.as_tensor(v).to(self.device,
+                                          self.model.cfg.compute_dtype)
+                 for k, v in (inputs or {}).items()}
         # a fixed seed, as the JAX engine samples with fixed keys
         gen = torch.Generator(device=self.device).manual_seed(0)
         tokens = torch.as_tensor(prompts, dtype=torch.int64,
@@ -191,7 +208,7 @@ class ServingEngine:
                  if self.device.type == "cuda" else None)
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(
-            tokens, max_len, cache=graph.cache if graph else None)
+            tokens, max_len, cache=graph.cache if graph else None, **extra)
         tok = sample(logits, gen, temperature=self.temperature,
                      vocab_size=vocab)
         self._sync()
@@ -215,7 +232,7 @@ class ServingEngine:
                     toks.append(tok)
             self.replays += max_new_tokens - 1
             if self.temperature <= 0.0:
-                toks = [graph.history[:, ii:ii + max_new_tokens]]
+                toks = [graph.history[:, seq:seq + max_new_tokens]]
         self._sync()
         t2 = time.perf_counter()
         out = torch.cat(toks, dim=1).cpu().numpy().astype(np.int32)
@@ -226,12 +243,16 @@ class ServingEngine:
     # -- benchmarking path ---------------------------------------------------
     def measure_throughput(self, ii: int, oo: int, bb: int, reps: int = 3,
                            seed: int = 0, warmup: int = 1) -> List[Dict]:
+        """Rows of ``warmup + reps`` requests of ``bb`` prompts of ``ii``
+        tokens and ``oo`` new ones, the warm-up dropped.  Each request's
+        prompts (and frames or patches) are drawn from one
+        ``default_rng(seed)`` stream in ``io.draw``'s order."""
         rng = np.random.default_rng(seed)
+        shape = ShapeSpec("request", self.model.n_prefix + ii, bb, "prefill")
         rows = []
         for r in range(warmup + reps):
-            prompts = rng.integers(
-                0, self.model.cfg.vocab_size, size=(bb, ii), dtype=np.int32)
-            res = self.generate(prompts, oo)
+            batch = io.draw(self.model.cfg, shape, rng)
+            res = self.generate(batch.pop("tokens"), oo, inputs=batch)
             if r >= warmup:
                 rows.append(dict(ii=ii, oo=oo, bb=bb,
                                  thpt=res.tokens_per_s,

@@ -19,8 +19,10 @@ LOG2E = 1.4426950408889634
 
 def attention_bf16_emulated(q, k, v, causal: bool = True,
                             scale: float | None = None):
-    """q: (B, S, H, Dh); k/v: (B, S, KV, Dh), bf16 -> (B, S, H, Dh) bf16."""
+    """q: (B, S, H, Dh); k/v: (B, Sk, KV, Dh), bf16 -> (B, S, H, Dh) bf16;
+    with ``causal``, row i attends to keys 0..i whatever Sk is."""
     b, s, h, dh = q.shape
+    sk = k.shape[1]
     group = h // k.shape[2]
     scale = scale if scale is not None else 1.0 / (dh ** 0.5)
     f32 = torch.float32
@@ -33,8 +35,8 @@ def attention_bf16_emulated(q, k, v, causal: bool = True,
     m = torch.full((b, h, s, 1), NEG_INF, device=q.device)
     l = torch.zeros((b, h, s, 1), device=q.device)
     acc = torch.zeros((b, h, s, dh), device=q.device)
-    for k0 in range(0, s, BLOCK_K):
-        cols = torch.arange(k0, min(k0 + BLOCK_K, s), device=q.device)[None]
+    for k0 in range(0, sk, BLOCK_K):
+        cols = torch.arange(k0, min(k0 + BLOCK_K, sk), device=q.device)[None]
         sc = qf @ kf[:, :, k0:k0 + BLOCK_K].transpose(-1, -2)
         if causal:
             sc = torch.where(cols <= rows, sc,

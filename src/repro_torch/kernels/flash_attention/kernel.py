@@ -17,7 +17,7 @@ from repro_torch.kernels import _build
 def _entry():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_int64] * 12
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -25,12 +25,12 @@ def _entry():
 
 
 def flash_attention_bshd(q, k, v, out, causal: bool, scale: float) -> None:
-    """q/out: (B, S, H, Dh); k/v: (B, S, KV, Dh), checked by the caller."""
+    """q/out: (B, S, H, Dh); k/v: (B, Sk, KV, Dh), checked by the caller."""
     lib, fn = _entry()
     b, s, h, dh = q.shape
-    kv = k.shape[2]
+    sk, kv = k.shape[1:3]
     strides = [x for t in (q, k, v, out) for x in t.stride()[:3]]
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-              _build.dtype_code(q, k, v, out), b, s, h, kv, dh, *strides,
+              _build.dtype_code(q, k, v, out), b, s, sk, h, kv, dh, *strides,
               scale, int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "flash_attention")

@@ -1,10 +1,13 @@
 """Grouped-query attention with RoPE, optional QKV bias / QK-norm, KV cache.
 
-Two entry points:
+Three entry points:
   * ``attend_full``   — prefill over a whole sequence (causal or not), through
     the flash-attention kernel,
   * ``attend_decode`` — one new token against a pre-allocated KV cache,
-    through the decode-attention kernel.
+    through the decode-attention kernel,
+  * ``attend_cross``  — encoder-decoder cross attention against precomputed
+    encoder K/V: the flash-attention kernel over a prompt (its own key
+    length), the decode-attention kernel in a decode step.
 
 Activations keep the JAX package's (B, S, H, Dh) layout and the cache its
 (B, T, KV, Dh) layout; both kernels read them in place through strides.
@@ -28,7 +31,10 @@ class KVCache(NamedTuple):
     v: torch.Tensor  # (B, T, KV, Dh)
 
 
-def init_attention(cfg: ModelConfig, generator: torch.Generator):
+def init_attention(cfg: ModelConfig, generator: torch.Generator,
+                   cross: bool = False):
+    """A cross-attention block (``cross``) has no QKV bias, as in the JAX
+    package."""
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dtype, device = cfg.compute_dtype, generator.device
     p = {
@@ -37,7 +43,7 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator):
         "wv": dense_init(generator, (d, kv, dh), dtype),
         "wo": dense_init(generator, (h, dh, d), dtype, in_axis=0),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h, dh), dtype=dtype, device=device)
         p["bk"] = torch.zeros((kv, dh), dtype=dtype, device=device)
         p["bv"] = torch.zeros((kv, dh), dtype=dtype, device=device)
@@ -112,6 +118,25 @@ def attend_decode(cfg: ModelConfig, params, x, cache: KVCache, pos):
     out = da_ops.decode_attention(q[:, 0], cache.k, cache.v, pos_t,
                                   scale=1.0 / (cfg.d_head ** 0.5))
     return _out_proj(params, out[:, None]), cache
+
+
+def attend_cross(cfg: ModelConfig, params, x, memory_kv: KVCache, pos=None):
+    """Cross attention of ``x`` (B, S, D) against precomputed encoder K/V
+    (B, T, KV, Dh): no RoPE, no mask.  ``pos`` None: a prompt, through
+    the flash-attention kernel with its own key length T, not causal.
+    ``pos`` given, a one-element int64 tensor on x's device holding
+    T - 1: one decode step (S 1) through the decode-attention kernel over
+    all T positions; a captured step reads the position from that
+    tensor, which lives with the cache."""
+    q = _project_q(cfg, params, x)
+    scale = 1.0 / (cfg.d_head ** 0.5)
+    if pos is None:
+        out = fa_ops.flash_attention(q, memory_kv.k, memory_kv.v,
+                                     causal=False, scale=scale)
+    else:
+        out = da_ops.decode_attention(q[:, 0], memory_kv.k, memory_kv.v,
+                                      pos, scale=scale)[:, None]
+    return _out_proj(params, out)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,

@@ -5,8 +5,8 @@ block has a mixer (attention / mamba / sLSTM / mLSTM) and an optional FFN
 (dense SwiGLU or MoE).  ``n_layers`` must be divisible by ``len(period)``.
 Every field of the JAX ``ModelConfig`` is kept, so a config copies over
 1:1; the dtype fields hold ``torch`` dtypes.  The torch ``Model`` runs
-every block kind; it refuses the encoder-decoder path, the vision
-frontend and sliding-window attention.
+every block kind, the encoder-decoder path and the vision frontend; it
+refuses sliding-window attention.
 """
 from __future__ import annotations
 

@@ -1,20 +1,26 @@
-"""Decoder model: init / prefill / decode for every block kind of
+"""The model: init / encode / prefill / decode for every block kind of
 ``repro.models.transformer`` that serving runs: a mixer (attention, Mamba,
 mLSTM or sLSTM) and an FFN (dense SwiGLU, MoE or none) per position of
-the period.
+the period; whisper's encoder stack and cross attention; internvl2's
+vision frontend.
 
 The stack is a Python loop over ``cfg.n_periods`` periods of
 ``cfg.period`` blocks; parameters are named as the JAX pytree
 (``blocks.<period>.<position>.attn.wq``, ``...moe.router``,
-``...moe.experts.w_gate``, ``...mamba.A_log``).  Every residual add that
-a norm follows runs fused with that norm (``layers.add_rmsnorm``): the
-mixer's add with the block's ``norm2`` where it has an FFN, the FFN's add
-(or, without an FFN, the mixer's) with the next block's ``norm1`` or,
-after the last block, the final norm.  The decode cache keeps the JAX
-layout, one state per period position (a ``KVCache``, ``MambaState``,
-``MLSTMState`` or ``SLSTMState``) with a leading ``n_periods`` axis, and
-is written in place.  A decode step reads its position from the device
-(``DecodeCache.pos_t``) and advances it there, so the step holds no host
+``...moe.experts.w_gate``, ``...mamba.A_log``, ``...cross_attn.wq``,
+``enc_blocks.<layer>.mlp.w_up``, ``enc_norm.scale``, ``vis_proj``).
+Every residual add that a norm follows runs fused with that norm
+(``layers.add_rmsnorm``): the mixer's add with the block's
+``cross_norm`` in a decoder block with cross attention, the cross add (or,
+without one, the mixer's add) with ``norm2`` where the block has an FFN,
+the FFN's add (or, without an FFN, the last add) with the next block's
+``norm1`` or, after the last block, the final norm (``enc_norm`` after
+the encoder's last block).  The decode cache keeps the JAX layout, one
+state per period position (a ``KVCache``, ``MambaState``, ``MLSTMState``
+or ``SLSTMState``) with a leading ``n_periods`` axis, and the encoder's
+K/V per decoder layer in ``cross``; it is written in place.  A decode
+step reads its positions from the device (``DecodeCache.pos_t``,
+``cross_pos_t``) and advances ``pos_t`` there, so the step holds no host
 value and can be captured as a CUDA graph.
 """
 from __future__ import annotations
@@ -50,44 +56,54 @@ class DecodeCache(NamedTuple):
     them), the next position to write, twice: ``pos`` on the host, for
     bounds checks only, and ``pos_t``, a one-element int64 tensor on the
     cache's device, which every computation reads and ``decode_step``
-    advances in place; and ``max_len``, the positions it holds."""
+    advances in place; and ``max_len``, the positions it holds.  An
+    encoder-decoder model's cache also holds ``cross``, the encoder's K/V
+    for each decoder layer (a ``KVCache`` a period position, (n_periods,
+    B, T_enc, KV, Dh)), which prefill writes in place, and
+    ``cross_pos_t``, a one-element int64 tensor holding T_enc - 1, the
+    last encoder position cross attention reads, fixed for the cache."""
     blocks: Tuple[NamedTuple, ...]
     pos: int
     pos_t: torch.Tensor
     max_len: int
+    cross: Optional[Tuple[NamedTuple, ...]] = None
+    cross_pos_t: Optional[torch.Tensor] = None
 
     def zero_(self) -> None:
-        """Zeroes every state and pos_t in place."""
-        for state in self.blocks:
+        """Zeroes every state, the cross K/V and pos_t in place."""
+        for state in self.blocks + (self.cross or ()):
             for t in state:
                 t.zero_()
         self.pos_t.zero_()
 
 
+# an encoder layer: attention (not causal) and a dense FFN
+_ENC_SPEC = BlockSpec(mixer=MIXER_ATTN, ffn=FFN_DENSE)
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    reason = None
-    if cfg.is_encdec:
-        reason = "the encoder-decoder path"
-    elif cfg.frontend != "none":
-        reason = f"the {cfg.frontend} frontend"
-    elif cfg.sliding_window is not None:
-        reason = "sliding-window attention"
-    if reason:
+    if cfg.sliding_window is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the torch Model runs decoder-only stacks; {reason} "
-            f"comes with ROADMAP queue A, 'The rest of the model zoo'")
+            f"{cfg.name}: the torch Model has no sliding-window attention: "
+            f"no config sets it, and the JAX package masks the window only "
+            f"on its plain prefill path (see ROADMAP queue A, 'The rest of "
+            f"the model zoo')")
 
 
 def _has_norm2(cfg: ModelConfig, spec: BlockSpec) -> bool:
     return spec.ffn == FFN_MOE or (spec.ffn == FFN_DENSE and cfg.d_ff > 0)
 
 
-def _init_block(cfg: ModelConfig, spec: BlockSpec, generator):
+def _init_block(cfg: ModelConfig, spec: BlockSpec, generator,
+                cross: bool = False):
     dev = generator.device
     init_mixer = {MIXER_ATTN: attn.init_attention, MIXER_MAMBA: ssm.init_mamba,
                   MIXER_MLSTM: ssm.init_mlstm, MIXER_SLSTM: ssm.init_slstm}
     p = {"norm1": L.init_rmsnorm(cfg, dev),
          spec.mixer: init_mixer[spec.mixer](cfg, generator)}
+    if cross:
+        p["cross_norm"] = L.init_rmsnorm(cfg, dev)
+        p["cross_attn"] = attn.init_attention(cfg, generator, cross=True)
     if _has_norm2(cfg, spec):
         p["norm2"] = L.init_rmsnorm(cfg, dev)
         if spec.ffn == FFN_MOE:
@@ -114,8 +130,12 @@ class _ParamTree(nn.Module):
         self.register_parameter(key, value)
 
 
-def _block_module(cfg: ModelConfig, spec: BlockSpec) -> nn.ModuleDict:
+def _block_module(cfg: ModelConfig, spec: BlockSpec,
+                  cross: bool = False) -> nn.ModuleDict:
     m = {"norm1": nn.ParameterDict(), spec.mixer: nn.ParameterDict()}
+    if cross:
+        m["cross_norm"] = nn.ParameterDict()
+        m["cross_attn"] = nn.ParameterDict()
     if _has_norm2(cfg, spec):
         m["norm2"] = nn.ParameterDict()
         if spec.ffn == FFN_MOE:
@@ -125,12 +145,17 @@ def _block_module(cfg: ModelConfig, spec: BlockSpec) -> nn.ModuleDict:
     return nn.ModuleDict(m)
 
 
-def _residuals(cfg, spec, block, x, out, next_norm):
-    """The rest of a block after its mixer output ``out``: the residual
-    add fused with ``norm2``, the FFN, and its add fused with
-    ``next_norm``; without an FFN the mixer's add is fused with
+def _residuals(cfg, spec, block, x, out, next_norm, memory=None, pos=None):
+    """The rest of a block after its mixer output ``out``: with
+    ``memory`` (the encoder's K/V of this layer), the residual add fused
+    with ``cross_norm`` and cross attention (``attend_cross`` at ``pos``);
+    the residual add fused with ``norm2``, the FFN, and its add fused with
+    ``next_norm``; without an FFN the last add is fused with
     ``next_norm``.  Returns (x, next_norm(x)).  A MoE block's aux loss is
     dropped, as the reference's prefill and decode drop it."""
+    if memory is not None:
+        x, hc = L.add_rmsnorm(x, out, block["cross_norm"], cfg.norm_eps)
+        out = attn.attend_cross(cfg, block["cross_attn"], hc, memory, pos)
     if "norm2" in block:
         x, h2 = L.add_rmsnorm(x, out, block["norm2"], cfg.norm_eps)
         out = (moe_mod.moe_ffn(cfg, block["moe"], h2)[0]
@@ -163,7 +188,7 @@ def flatten_params(prefix: str, tree: dict) -> dict:
 
 
 class Model(nn.Module):
-    """The decoder.  ``Model(cfg)`` holds no tensors until
+    """The model.  ``Model(cfg)`` holds no tensors until
     ``init(generator)`` draws them or ``load(params)`` takes them; the model
     then lives on that device."""
 
@@ -174,36 +199,62 @@ class Model(nn.Module):
         self.embed = nn.ParameterDict()
         self.final_norm = nn.ParameterDict()
         self.blocks = nn.ModuleList(
-            nn.ModuleList(_block_module(cfg, spec) for spec in cfg.period)
+            nn.ModuleList(_block_module(cfg, spec, cross=cfg.is_encdec)
+                          for spec in cfg.period)
             for _ in range(cfg.n_periods))
+        if cfg.is_encdec:
+            self.enc_blocks = nn.ModuleList(
+                _block_module(cfg, _ENC_SPEC)
+                for _ in range(cfg.n_encoder_layers))
+            self.enc_norm = nn.ParameterDict()
+        if cfg.frontend == "vision":
+            self.register_parameter("vis_proj", None)
 
     @property
     def device(self) -> torch.device:
         return self.embed["tok_embed"].device
 
+    @property
+    def n_prefix(self) -> int:
+        """Positions a prompt takes before its tokens: the vision stub's
+        patches, which prefill puts first."""
+        return self.cfg.n_patches if self.cfg.frontend == "vision" else 0
+
     # -- parameters ----------------------------------------------------------
     def init(self, generator: torch.Generator) -> "Model":
         """Draws every parameter from ``generator``, on its device."""
-        cfg = self.cfg
+        cfg, dev = self.cfg, generator.device
         params = flatten_params("embed", L.init_embeddings(cfg, generator))
-        params.update(flatten_params(
-            "final_norm", L.init_rmsnorm(cfg, generator.device)))
+        params.update(flatten_params("final_norm", L.init_rmsnorm(cfg, dev)))
         for p in range(cfg.n_periods):
             for i, spec in enumerate(cfg.period):
                 params.update(flatten_params(
-                    f"blocks.{p}.{i}", _init_block(cfg, spec, generator)))
+                    f"blocks.{p}.{i}",
+                    _init_block(cfg, spec, generator, cross=cfg.is_encdec)))
+        if cfg.is_encdec:
+            for n in range(cfg.n_encoder_layers):
+                params.update(flatten_params(
+                    f"enc_blocks.{n}", _init_block(cfg, _ENC_SPEC, generator)))
+            params.update(flatten_params("enc_norm",
+                                         L.init_rmsnorm(cfg, dev)))
+        if cfg.frontend == "vision":
+            params["vis_proj"] = L.dense_init(
+                generator, (cfg.d_model, cfg.d_model), cfg.compute_dtype)
         return self.load(params)
 
     def load(self, params: Dict[str, torch.Tensor]) -> "Model":
         """Takes parameters named ``<module path>.<key>`` (as ``init`` and
-        ``repro_torch.weights.params_from_jax`` make them), casting each
-        matrix to ``cfg.compute_dtype`` once."""
+        ``repro_torch.weights.params_from_jax`` make them; ``vis_proj``
+        has no path), casting each matrix to ``cfg.compute_dtype`` once."""
         for name, t in params.items():
-            path, key = name.rsplit(".", 1)
+            path, _, key = name.rpartition(".")
             dtype = (self.cfg.param_dtype if key in _PARAM_DTYPE
                      else self.cfg.compute_dtype)
-            self.get_submodule(path)[key] = nn.Parameter(
-                t.to(dtype), requires_grad=False)
+            param = nn.Parameter(t.to(dtype), requires_grad=False)
+            if path:
+                self.get_submodule(path)[key] = param
+            else:
+                setattr(self, key, param)
         return self
 
     # -- serving -------------------------------------------------------------
@@ -220,42 +271,107 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    filled: Optional[int] = None) -> DecodeCache:
-        blocks = tuple(_state_zeros(self.cfg, spec, batch, max_len,
-                                    self.device) for spec in self.cfg.period)
+        """Zeroed states for ``batch`` sequences of ``max_len`` positions,
+        ``filled`` of them taken; an encoder-decoder model's cross K/V
+        hold ``cfg.encoder_seq`` positions."""
+        cfg, dev = self.cfg, self.device
+        blocks = tuple(_state_zeros(cfg, spec, batch, max_len, dev)
+                       for spec in cfg.period)
         pos = filled or 0
+        cross = cross_pos_t = None
+        if cfg.is_encdec:
+            cross = tuple(_state_zeros(cfg, _ENC_SPEC, batch,
+                                       cfg.encoder_seq, dev)
+                          for _ in cfg.period)
+            cross_pos_t = torch.full((1,), cfg.encoder_seq - 1,
+                                     dtype=torch.int64, device=dev)
         return DecodeCache(blocks=blocks, pos=pos, pos_t=torch.full(
-            (1,), pos, dtype=torch.int64, device=self.device),
-            max_len=max_len)
+            (1,), pos, dtype=torch.int64, device=dev), max_len=max_len,
+            cross=cross, cross_pos_t=cross_pos_t)
+
+    @torch.inference_mode()
+    def encode(self, frames):
+        """The encoder stack over ``frames`` (B, T, D): attention not
+        causal, RoPE over 0..T-1, as the JAX package's ``encode``; returns
+        ``enc_norm`` of its output."""
+        cfg = self.cfg
+        x = frames.to(cfg.compute_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        h = L.rmsnorm(x, self.enc_blocks[0]["norm1"], cfg.norm_eps)
+        after = [block["norm1"] for block in self.enc_blocks[1:]]
+        for block, norm in zip(self.enc_blocks, after + [self.enc_norm]):
+            out, _ = attn.attend_full(cfg, block["attn"], h, positions,
+                                      causal=False)
+            x, h = _residuals(cfg, _ENC_SPEC, block, x, out, norm)
+        return h
+
+    def _cross_kv(self, enc_out, cache: DecodeCache) -> None:
+        """Each decoder layer's cross K/V of the encoder output, written
+        into ``cache.cross`` in place."""
+        for p, i, _, block, _ in self._layers():
+            k, v = attn._project_kv(self.cfg, block["cross_attn"], enc_out)
+            cache.cross[i].k[p].copy_(k)
+            cache.cross[i].v[p].copy_(v)
+
+    @staticmethod
+    def _memory(cache: DecodeCache, p: int, i: int):
+        """Decoder layer (p, i)'s encoder K/V in the cache, as views; None
+        without an encoder."""
+        if cache.cross is None:
+            return None
+        return attn.KVCache(k=cache.cross[i].k[p], v=cache.cross[i].v[p])
 
     @torch.inference_mode()
     def prefill(self, tokens, max_len: Optional[int] = None,
-                cache: Optional[DecodeCache] = None):
+                cache: Optional[DecodeCache] = None, *, frames=None,
+                patches=None):
         """Run the prompt ``tokens`` (B, S); returns (last-token logits
-        (B, 1, padded_vocab), DecodeCache).
+        (B, 1, padded_vocab), DecodeCache).  An encoder-decoder model
+        takes ``frames`` (B, cfg.encoder_seq, D), which the encoder runs
+        over first; a vision model ``patches`` (B, n_patches, D),
+        projected and put before the tokens.
 
-        KV caches are written into ``max_len``-long zeroed buffers so
-        decode can continue in place, and each recurrent block's state is
-        the one after the prompt, from zeros; ``cache`` given, it is that
-        cache's buffers (zeroed first: nothing of an earlier prompt
-        carries over), and its ``pos_t`` is set to S in place."""
+        KV caches are written into zeroed buffers so decode can continue
+        in place: ``max_len`` positions (default S), or the whole sequence
+        where the patches make it longer, as the JAX package pads; each
+        recurrent block's state is the one after the prompt, from zeros;
+        ``cache`` given, it is that cache's buffers (zeroed first: nothing
+        of an earlier prompt carries over), its ``pos_t`` is set to the
+        sequence's length and its cross K/V written, in place."""
         cfg = self.cfg
-        b, s = tokens.shape
+        if cfg.is_encdec and frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             f"prefill needs frames (B, encoder_seq, d_model)")
+        if cfg.frontend == "vision" and patches is None:
+            raise ValueError(f"{cfg.name} has a vision frontend: prefill "
+                             f"needs patches (B, n_patches, d_model)")
+        if cfg.is_encdec and frames.shape[1] != cfg.encoder_seq:
+            raise ValueError(f"{cfg.name} takes {cfg.encoder_seq} encoder "
+                             f"frames, not {frames.shape[1]}")
+        b, s_text = tokens.shape
+        s = s_text + (patches.shape[1] if cfg.frontend == "vision" else 0)
         if cache is None:
-            max_len = max_len or s
-            if max_len < s:
-                raise ValueError(f"max_len {max_len} < prompt length {s}")
-            cache = self.init_cache(b, max_len, filled=s)
+            max_len = max_len or s_text
+            if max_len < s_text:
+                raise ValueError(f"max_len {max_len} < prompt length "
+                                 f"{s_text}")
+            cache = self.init_cache(b, max(max_len, s), filled=s)
         else:
             if (cache.blocks[0][0].shape[1] != b or cache.max_len < s
                     or max_len not in (None, cache.max_len)):
                 raise ValueError(
                     f"a cache of {cache.blocks[0][0].shape[1]} sequences of "
                     f"{cache.max_len} positions cannot take {b} prompts of "
-                    f"{s} tokens")
+                    f"{s} positions")
             cache.zero_()
             cache.pos_t.fill_(s)
             cache = cache._replace(pos=s)
         x = L.embed(cfg, self.embed, tokens)
+        if cfg.frontend == "vision":
+            vis = patches.to(cfg.compute_dtype) @ self.vis_proj
+            x = torch.cat([vis, x], dim=1)
+        if cfg.is_encdec:
+            self._cross_kv(self.encode(frames), cache)
         h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
         positions = torch.arange(s, device=x.device)[None, :]
         for p, i, spec, block, norm in self._layers():
@@ -268,7 +384,8 @@ class Model(nn.Module):
                 out, state = _FULL[spec.mixer](cfg, params, h)
                 for t, new in zip(dst, state):
                     t[p].copy_(new)
-            x, h = _residuals(cfg, spec, block, x, out, norm)
+            x, h = _residuals(cfg, spec, block, x, out, norm,
+                              self._memory(cache, p, i))
         return L.lm_logits(cfg, self.embed, h[:, -1:]), cache
 
     @torch.inference_mode()
@@ -276,8 +393,9 @@ class Model(nn.Module):
         """tokens: (B, 1) the token sampled at position cache.pos_t - 1;
         returns logits for position cache.pos_t and the cache, updated in
         place: K/V written at pos_t, each recurrent state replaced by the
-        next, then pos_t advanced by one.  Only the bounds check reads the
-        host's ``cache.pos``."""
+        next, then pos_t advanced by one.  Cross attention reads the
+        encoder K/V up to ``cache.cross_pos_t``.  Only the bounds check
+        reads the host's ``cache.pos``."""
         cfg = self.cfg
         pos = cache.pos
         if pos >= cache.max_len:
@@ -294,7 +412,8 @@ class Model(nn.Module):
                 out, new = _DECODE[spec.mixer](cfg, params, h, state)
                 for t, n in zip(state, new):
                     t.copy_(n)
-            x, h = _residuals(cfg, spec, block, x, out, norm)
+            x, h = _residuals(cfg, spec, block, x, out, norm,
+                              self._memory(cache, p, i), cache.cross_pos_t)
         logits = L.lm_logits(cfg, self.embed, h)
         cache.pos_t.add_(1)
         return logits, cache._replace(pos=pos + 1)

@@ -49,8 +49,13 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
-    """JAX param pytree (numpy leaves) -> ``{name: tensor}`` on ``device``."""
-    extra = set(tree) - {"embed", "final_norm", "blocks"}
+    """JAX param pytree (numpy leaves) -> ``{name: tensor}`` on ``device``:
+    the decoder's blocks (leading axis ``n_periods``, a decoder block's
+    ``cross_norm`` and ``cross_attn`` included), the encoder's
+    ``enc_blocks`` (leading axis ``n_encoder_layers``) and ``enc_norm``,
+    and ``vis_proj``."""
+    extra = set(tree) - {"embed", "final_norm", "blocks", "enc_blocks",
+                         "enc_norm", "vis_proj"}
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to "
                                   f"paths the torch model does not run")
@@ -58,14 +63,23 @@ def params_from_jax(tree, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{len(tree['blocks'])} period positions in the "
                          f"tree, {len(cfg.period)} in {cfg.name}")
     out = {name: _tensor(a, device) for name, a in flatten_params(
-        "", {"embed": tree["embed"], "final_norm": tree["final_norm"]}).items()}
-    for i, block in enumerate(tree["blocks"]):
+        "", {k: tree[k] for k in ("embed", "final_norm", "enc_norm",
+                                  "vis_proj") if k in tree}).items()}
+
+    def unstack(where, block, n, axis, name_of):
         for name, a in flatten_params("", block).items():
-            if a.shape[0] != cfg.n_periods:
-                raise ValueError(f"blocks[{i}].{name}: leading axis "
-                                 f"{a.shape[0]} != n_periods {cfg.n_periods}")
-            for p in range(cfg.n_periods):
-                out[f"blocks.{p}.{i}.{name}"] = _tensor(a[p], device)
+            if a.shape[0] != n:
+                raise ValueError(f"{where}.{name}: leading axis "
+                                 f"{a.shape[0]} != {axis} {n}")
+            for j in range(n):
+                out[f"{name_of(j)}.{name}"] = _tensor(a[j], device)
+
+    for i, block in enumerate(tree["blocks"]):
+        unstack(f"blocks[{i}]", block, cfg.n_periods, "n_periods",
+                lambda p, i=i: f"blocks.{p}.{i}")
+    if "enc_blocks" in tree:
+        unstack("enc_blocks", tree["enc_blocks"], cfg.n_encoder_layers,
+                "n_encoder_layers", lambda n: f"enc_blocks.{n}")
     return out
 
 

@@ -138,3 +138,88 @@ def test_moe_and_recurrent_greedy_tokens_match_jax(arch, monkeypatch):
         for _ in range(7):
             graph.logits = graph._step()
     np.testing.assert_array_equal(graph.history[:, 8:16].numpy(), want)
+
+
+def _reference_greedy(jmodel, params, batch, oo):
+    """The JAX model's greedy loop, ``prefill`` + ``decode_step``, fed by
+    ``io.make_batch``: the oracle for the stub-frontend archs, which the
+    reference engine (tokens only) cannot serve."""
+    b, s = batch["tokens"].shape
+    seq = s + (batch["patches"].shape[1] if "patches" in batch else 0)
+    vocab = jmodel.cfg.vocab_size
+    logits, cache = jax.jit(
+        lambda p, x: jmodel.prefill(p, x, max_len=seq + oo))(params, batch)
+    tok = jax_sample(logits, None, vocab_size=vocab)
+    toks = [tok]
+    step = jax.jit(jmodel.decode_step)
+    for _ in range(oo - 1):
+        logits, cache = step(params, cache, tok)
+        tok = jax_sample(logits, None, vocab_size=vocab)
+        toks.append(tok)
+    return np.concatenate([np.asarray(t) for t in toks], axis=1)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-1b"])
+def test_stub_frontend_greedy_tokens_match_the_jax_model(arch, monkeypatch):
+    """whisper (frames, cross attention) and internvl2 (patches before the
+    prompt): the engine's greedy tokens through its ``inputs`` hook are
+    the JAX model's greedy loop's on the same ``make_batch``, and the
+    decode graph's step, run eagerly on CPU tensors, gives them again
+    from a cache filled in place (cross K/V included); the greedy tokens
+    sit after the patches in ``history``."""
+    from repro.configs.shapes import ShapeSpec as JaxShapeSpec
+    from repro.models import io as jio
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.inference.engine import DecodeGraph
+    from repro_torch.models import io as tio
+    jeng, teng = _engines(arch)
+    model, ii, oo = teng.model, 8, 6
+    seq = model.n_prefix + ii
+    jb = jio.make_batch(jeng.model.cfg, JaxShapeSpec("p", seq, 2, "prefill"),
+                        seed=5)
+    want = _reference_greedy(jeng.model, jeng.params, jb, oo)
+    arrays = tio.draw(model.cfg, ShapeSpec("p", seq, 2, "prefill"),
+                      np.random.default_rng(5))
+    prompts = arrays.pop("tokens")
+    got = teng.generate(prompts, oo, inputs=arrays)
+    np.testing.assert_array_equal(got.tokens, want)
+    monkeypatch.setattr(DecodeGraph, "_capture", lambda self: None)
+    graph = DecodeGraph(model, 2, seq + oo)
+    extra = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    logits, _ = model.prefill(torch.from_numpy(prompts).long(),
+                              cache=graph.cache, **extra)
+    graph.start(sample(logits, vocab_size=model.cfg.vocab_size))
+    with torch.inference_mode():
+        for _ in range(oo - 1):
+            graph.logits = graph._step()
+    np.testing.assert_array_equal(graph.history[:, seq:seq + oo].numpy(),
+                                  want)
+    with pytest.raises(ValueError, match="cache slots"):
+        teng.generate(prompts, oo, max_len=seq + oo - 2, inputs=arrays)
+
+
+def test_measure_throughput_draws_the_stub_inputs_seeded(monkeypatch):
+    """Each request's prompts and patches come from one seeded stream in
+    ``io.draw``'s order; the rows keep the schema, ``ii`` the prompt's
+    tokens without the patches."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models import io as tio
+    _, teng = _engines("internvl2-1b")
+    cfg = teng.model.cfg
+    seen = []
+    generate = teng.generate
+
+    def spy(prompts, oo, max_len=None, inputs=None):
+        seen.append((prompts, inputs))
+        return generate(prompts, oo, max_len, inputs)
+    monkeypatch.setattr(teng, "generate", spy)
+    rows = teng.measure_throughput(ii=5, oo=3, bb=2, reps=2, seed=3)
+    assert [(r["ii"], r["oo"], r["bb"]) for r in rows] == [(5, 3, 2)] * 2
+    rng = np.random.default_rng(3)
+    for prompts, inputs in seen:
+        want = tio.draw(cfg, ShapeSpec("p", cfg.n_patches + 5, 2, "prefill"),
+                        rng)
+        np.testing.assert_array_equal(prompts, want["tokens"])
+        assert list(inputs) == ["patches"]
+        np.testing.assert_array_equal(inputs["patches"], want["patches"])
+    assert len(seen) == 3

@@ -925,3 +925,170 @@ def test_moe_and_recurrent_decode_graphs_are_the_eager_steps(cuda, arch):
     for st, ref in zip(graph.cache.blocks, cache.blocks):
         if type(st).__name__ != "KVCache":
             assert all(torch.equal(a, b) for a, b in zip(st, ref))
+
+
+# ------------------------- encoder-decoder and vision paths (whisper, ----
+# ------------------------- internvl2): K2's own key length, K3 over the --
+# ------------------------- encoder's frames, K1 at d 896, the models -----
+ENCDEC_HEADS = [(16, 16), (14, 2)]   # whisper G 1, internvl2 G 7
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 1500), (16, 1500), (128, 1500),
+                                   (300, 65), (64, 63), (128, 64)])
+@pytest.mark.parametrize("h,kv", ENCDEC_HEADS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_kernel_takes_a_key_length_of_its_own(
+        cuda, sq, sk, h, kv, causal, dtype):
+    """K2 with Sq query rows against Sk keys (whisper's 1,500 frames,
+    ragged against the 64-key tiles, and around one tile), causal as the
+    top-left mask row >= col, at Dh 64."""
+    gen = torch.Generator(cuda).manual_seed(11)
+    q = _randn(gen, (2, sq, h, 64), dtype, cuda)
+    k = _randn(gen, (2, sk, kv, 64), dtype, cuda)
+    v = _randn(gen, (2, sk, kv, 64), dtype, cuda)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _flash_want(q, k, v, causal),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("sq,sk", [(16, 1500), (300, 65), (1500, 1500)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_kernel_matches_its_emulation_at_its_own_sk(
+        cuda, sq, sk, causal):
+    """K2's bf16 output within one bf16 ulp of its emulated rounding points
+    at Sq != Sk and at whisper's encoder length (the 1,500 tail), G 1."""
+    gen = torch.Generator(cuda).manual_seed(12)
+    q = _randn(gen, (1, sq, 4, 64), torch.bfloat16, cuda)
+    k = _randn(gen, (1, sk, 4, 64), torch.bfloat16, cuda)
+    v = _randn(gen, (1, sk, 4, 64), torch.bfloat16, cuda)
+    got = fa_ops.flash_attention(q, k, v, causal=causal).cpu().float()
+    want = attention_bf16_emulated(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    err = (got - want.float()).abs() / _bf16_ulp(want)
+    assert err.max() <= 1, f"{err.max():.3g} ulp"
+
+
+@pytest.mark.parametrize("sq,sk", [(65, 1500), (129, 70)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_own_sk_reads_only_its_views(cuda, sq, sk, causal,
+                                                     dtype):
+    """q and k/v strided views of buffers of other lengths, NaN around
+    them: a read past Sq or Sk reaches the output."""
+    gen = torch.Generator(cuda).manual_seed(13)
+    qbuf = torch.full((2, sq + 5, 10, 80), float("nan"), dtype=dtype,
+                      device=cuda)
+    kbuf = torch.full((2, sk + 7, 6, 80), float("nan"), dtype=dtype,
+                      device=cuda)
+    q = qbuf[:, 2:2 + sq, 1:9, 8:72]
+    k, v = kbuf[:, 3:3 + sk, 0:2, 8:72], kbuf[:, 3:3 + sk, 3:5, 8:72]
+    for x in (q, k, v):
+        x.copy_(_randn(gen, x.shape, dtype, cuda))
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _flash_want(q, k, v, causal),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("h,kv", ENCDEC_HEADS)
+@pytest.mark.parametrize("pos", [0, 700, 1499])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_kernel_over_the_encoder_frames(cuda, b, h, kv, pos,
+                                                         dtype):
+    """K3 over a 1,500-slot cache at G 1 and G 7; pos 1499 is whisper's
+    cross attention in a decode step, read from a device tensor."""
+    gen = torch.Generator(cuda).manual_seed(14)
+    q = _randn(gen, (b, h, 64), dtype, cuda)
+    k = _randn(gen, (b, 1500, kv, 64), dtype, cuda)
+    v = _randn(gen, (b, 1500, kv, 64), dtype, cuda)
+    pos_t = torch.full((1,), pos, dtype=torch.int64, device=cuda)
+    got = da_ops.decode_attention(q, k, v, pos_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, _decode_want(q, k, v, pos),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("rows", [8, 2048])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernels_at_internvl2_width(cuda, rows, dtype):
+    """K1 plain and fused at d 896 (112 16-byte vectors a bf16 row)."""
+    gen = torch.Generator(cuda).manual_seed(15)
+    x, r = (_randn(gen, (rows, 896), dtype, cuda) for _ in range(2))
+    scale = _randn(gen, (896,), torch.float32, cuda)
+    torch.testing.assert_close(rms_ops.rmsnorm(x, scale),
+                               rmsnorm_ref(x, scale), **_tol(dtype))
+    s, y = rms_ops.add_rmsnorm(x, r, scale)
+    want_s, want_y = add_rmsnorm_ref(x, r, scale)
+    assert torch.equal(s, want_s)
+    torch.testing.assert_close(y, want_y, **_tol(dtype))
+
+
+def _frontend(cfg, b, text, device, seed=1):
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models import io
+    seq = text + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    batch = io.make_batch(cfg, ShapeSpec("p", seq, b, "prefill"), seed,
+                          device)
+    return batch.pop("tokens").long(), batch, seq
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-1b"])
+def test_encdec_and_vision_smoke_models_on_card_match_cpu(cuda, arch):
+    """fp32 smoke models on the card against the same weights on the CPU,
+    prefill and 3 decode steps: logits, self K/V and whisper's cross K/V."""
+    cfg = get_smoke_config(arch).scaled(compute_dtype=torch.float32)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    cpu = Model(cfg).load({n: p.cpu() for n, p in model.named_parameters()})
+    toks, extra, seq = _frontend(cfg, 2, 24, "cpu")
+    got, gcache = model.prefill(toks.to(cuda), seq + 3,
+                                **{k: t.to(cuda) for k, t in extra.items()})
+    want, ccache = cpu.prefill(toks, seq + 3, **extra)
+    torch.testing.assert_close(got.cpu(), want, **_tol(torch.float32))
+    for tok in toks[:, :3].T[:, :, None]:
+        got, gcache = model.decode_step(gcache, tok.to(cuda))
+        want, ccache = cpu.decode_step(ccache, tok)
+        torch.testing.assert_close(got.cpu(), want, **_tol(torch.float32))
+    for st, ref in zip(gcache.blocks + (gcache.cross or ()),
+                       ccache.blocks + (ccache.cross or ())):
+        for a, b in zip(st, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-1b"])
+def test_encdec_and_vision_decode_graphs_are_the_eager_steps(cuda, arch):
+    """bf16 smoke models: an eager decode step (cross attention included)
+    syncs no value to the host, and 16 replays of the captured step equal
+    16 eager greedy steps bit for bit, with the cross K/V the prefill
+    wrote into the graph's own buffers."""
+    from repro_torch.inference.engine import DecodeGraph
+    from repro_torch.inference.sampling import sample
+    cfg = get_smoke_config(arch)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    toks, extra, seq = _frontend(cfg, 3, 20, cuda, seed=4)
+    graph = DecodeGraph(model, 3, seq + 20)
+    logits, cache = model.prefill(toks, seq + 20, **extra)
+    tok = sample(logits, vocab_size=cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.decode_step(cache, tok)
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = [(logits.clone(), tok)]
+    for _ in range(15):
+        logits, cache = model.decode_step(cache, tok)
+        tok = sample(logits, vocab_size=cfg.vocab_size)
+        want.append((logits.clone(), tok))
+    logits, _ = model.prefill(toks, cache=graph.cache, **extra)
+    graph.start(sample(logits, vocab_size=cfg.vocab_size))
+    for i, (wl, wt) in enumerate(want):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(graph.logits, wl), i
+        assert torch.equal(graph.tok, wt), i
+    assert int(graph.cache.pos_t) == seq + 16
+    for st, ref in zip(graph.cache.cross or (), cache.cross or ()):
+        assert all(torch.equal(a, b) for a, b in zip(st, ref))

@@ -112,6 +112,54 @@ def test_flash_attention_bf16_rounding_points_match_jax(s, force, causal):
                                         force=force, **block), "bfloat16")
 
 
+@pytest.mark.parametrize("b,h,kv,s,sk,dh", [
+    (1, 4, 4, 64, 192, 16),     # cross attention: keys longer than queries
+    (2, 8, 2, 128, 64, 64),     # keys shorter, GQA 4x
+    (1, 14, 2, 64, 320, 64),    # internvl2's 7 query heads a KV head
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_flash_attention_takes_a_key_length_of_its_own(b, h, kv, s, sk, dh,
+                                                       causal, dtype_name):
+    """K2 at Sq != Sk, as the TPU kernel takes it (``sk`` its own), at
+    sizes its 64-row blocks divide: causal is the top-left mask
+    row >= col, whatever Sk is; fp32 within 2e-5, bf16 2e-2."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        9, [(b, s, h, dh), (b, sk, kv, dh), (b, sk, kv, dh)], dtype_name)
+    got = fa_ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    for force in ("ref", "interpret"):
+        _close(got, jfa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                            force=force, block_q=64,
+                                            block_k=64), dtype_name)
+
+
+@pytest.mark.parametrize("s,sk,force", [(128, 320, "interpret"),
+                                        (16, 1500, "ref"), (1, 1500, "ref")])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_rounding_points_at_a_key_length_of_its_own(
+        s, sk, force, causal):
+    """K2's emulated bf16 arithmetic at Sq != Sk, up to whisper's 1,500
+    encoder frames (ragged against the 64-key tiles), within the bf16
+    tolerance of the JAX flash kernel, at whisper's head width (Dh 64,
+    G 1)."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        10, [(1, s, 4, 64), (1, sk, 4, 64), (1, sk, 4, 64)], "bfloat16")
+    got = attention_bf16_emulated(tq, tk, tv, causal=causal)
+    block = dict(block_q=64, block_k=64) if force == "interpret" else {}
+    _close(got, jfa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                        force=force, **block), "bfloat16")
+
+
+@pytest.mark.parametrize("kshape", [(2, 16, 2, 32), (1, 0, 2, 32),
+                                    (1, 16, 3, 32), (1, 16, 2, 16)],
+                         ids=["batch", "no keys", "heads", "head size"])
+def test_flash_attention_rejects_keys_that_do_not_fit(kshape):
+    _, (q, k) = _inputs(11, [(1, 8, 4, 32), kshape], "float32")
+    with pytest.raises(ValueError, match="not"):
+        fa_ops.flash_attention(q, k, k)
+
+
 # ---------------------------------------------------------- decode attention --
 @pytest.mark.parametrize("b,h,kv,t,dh", [
     (2, 8, 2, 128, 64),

@@ -2,7 +2,9 @@
 llama3.1-8b smoke model's prefill logits, KV caches and decode logits, with
 the JAX weights converted through ``params_from_jax``; the MoE and
 recurrent smoke models (phi3.5-moe, llama4-maverick, xlstm, jamba) in fp32,
-their recurrent states included.
+their recurrent states included.  (whisper's and internvl2's smoke models
+against JAX: ``test_torch_encdec.py``; here their parameter names, fused
+norms and norm counts.)
 
 fp32 compute is held at 1e-4: both sides run the same math and only the
 summation order differs.  bf16 compute cannot be held at 2e-2: rounding the
@@ -27,7 +29,9 @@ from repro.models import layers as jlayers
 from repro.models.transformer import Model as JaxModel
 
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.models import attention as tattn
+from repro_torch.models import io as tio
 from repro_torch.models import layers as tlayers
 from repro_torch.models.transformer import Model
 from repro_torch.weights import params_from_jax
@@ -35,8 +39,9 @@ from repro_torch.weights import params_from_jax
 ARCH = "llama3.1-8b"
 PORTED = ("llama3.1-8b", "llama3.2-3b", "qwen2.5-32b", "command-r-35b",
           "qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
-          "xlstm-125m", "jamba-1.5-large-398b")
-NOT_PORTED = ("whisper-medium", "internvl2-1b")
+          "xlstm-125m", "jamba-1.5-large-398b", "whisper-medium",
+          "internvl2-1b")
+NOT_PORTED = ()
 # the smoke models of the MoE and recurrent blocks, with a prompt length
 # their chunked scans take (Mamba's chunk is 16)
 MOE_AND_RECURRENT = {"phi3.5-moe-42b-a6.6b": 12,
@@ -108,13 +113,12 @@ def test_other_archs_are_not_ported_yet():
         get_config("gpt-2")
 
 
-@pytest.mark.parametrize("path", [dict(n_encoder_layers=2),
-                                  dict(frontend="vision"),
-                                  dict(sliding_window=64)],
-                         ids=["encoder-decoder", "vision", "sliding-window"])
+@pytest.mark.parametrize("path", [dict(sliding_window=64)],
+                         ids=["sliding-window"])
 def test_model_refuses_blocks_it_does_not_run(path):
-    """Every block kind runs; the paths still to port are refused, naming
-    ROADMAP."""
+    """Every block kind, the encoder-decoder path and the vision frontend
+    run; sliding-window attention, which no config sets, is refused,
+    naming ROADMAP."""
     cfg = get_smoke_config(ARCH).scaled(**path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(cfg)
@@ -296,27 +300,57 @@ def test_cpu_path_leaves_launch_counters_at_zero():
 
 
 # ------------------------------------------- fused norms, device position --
-def _unfused(model, tokens, cache, pos=None):
+def _unfused(model, tokens, cache, pos=None, frames=None, patches=None):
     """The block order before the fused norms, written out: every residual
     add, then every norm, each alone.  ``pos`` None: a prefill into
-    ``cache`` from position 0; else one decode step at the int ``pos``.
-    Returns the last position's logits."""
+    ``cache`` from position 0 (with ``frames``: the encoder first, each
+    decoder layer's cross K/V of its output written into the cache; with
+    ``patches``: projected and put before the tokens); else one decode
+    step at the int ``pos``.  A decoder block with cross attention adds it
+    between the mixer and the FFN.  Returns the last position's logits."""
     cfg = model.cfg
     eps = cfg.norm_eps
     x = tlayers.embed(cfg, model.embed, tokens)
-    positions = torch.arange(tokens.shape[1])[None, :]
+    if patches is not None:
+        vis = patches.to(cfg.compute_dtype) @ model.vis_proj
+        x = torch.cat([vis, x], dim=1)
+    if frames is not None:
+        e = frames.to(cfg.compute_dtype)
+        enc_pos = torch.arange(e.shape[1])[None, :]
+        for block in model.enc_blocks:
+            h = tlayers.rmsnorm(e, block["norm1"], eps)
+            out, _ = tattn.attend_full(cfg, block["attn"], h, enc_pos,
+                                       causal=False)
+            e = e + out
+            h2 = tlayers.rmsnorm(e, block["norm2"], eps)
+            e = e + tlayers.mlp(cfg, block["mlp"], h2)
+        e = tlayers.rmsnorm(e, model.enc_norm, eps)
+        for p, period in enumerate(model.blocks):
+            for i, block in enumerate(period):
+                k, v = tattn._project_kv(cfg, block["cross_attn"], e)
+                cache.cross[i].k[p] = k
+                cache.cross[i].v[p] = v
+    positions = torch.arange(x.shape[1])[None, :]
     for p, period in enumerate(model.blocks):
         for i, block in enumerate(period):
             h = tlayers.rmsnorm(x, block["norm1"], eps)
             if pos is None:
                 out, kv = tattn.attend_full(cfg, block["attn"], h, positions)
-                cache.blocks[i].k[p, :, :tokens.shape[1]] = kv.k
-                cache.blocks[i].v[p, :, :tokens.shape[1]] = kv.v
+                cache.blocks[i].k[p, :, :x.shape[1]] = kv.k
+                cache.blocks[i].v[p, :, :x.shape[1]] = kv.v
             else:
                 kv = tattn.KVCache(k=cache.blocks[i].k[p],
                                    v=cache.blocks[i].v[p])
                 out, _ = tattn.attend_decode(cfg, block["attn"], h, kv, pos)
             x = x + out
+            if "cross_attn" in block:
+                mem = tattn.KVCache(k=cache.cross[i].k[p],
+                                    v=cache.cross[i].v[p])
+                last = (None if pos is None else
+                        torch.tensor([mem.k.shape[1] - 1]))
+                hc = tlayers.rmsnorm(x, block["cross_norm"], eps)
+                x = x + tattn.attend_cross(cfg, block["cross_attn"], hc, mem,
+                                           last)
             h2 = tlayers.rmsnorm(x, block["norm2"], eps)
             x = x + tlayers.mlp(cfg, block["mlp"], h2)
     x = tlayers.rmsnorm(x, model.final_norm, eps)
@@ -344,6 +378,38 @@ def test_fused_model_is_the_unfused_block_order_bit_for_bit(dtype_name):
             assert torch.equal(got, want), n
     for kv, ref in zip(cache.blocks, ref_cache.blocks):
         assert torch.equal(kv.k, ref.k) and torch.equal(kv.v, ref.v)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-1b"])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_fused_encdec_and_vision_models_are_the_unfused_block_order(
+        dtype_name, arch):
+    """whisper's encoder and decoder blocks, whose three residual adds fuse
+    with cross_norm, norm2 and the next norm1, and internvl2 with its
+    patches first: on the CPU no bit of the logits, the self K/V or the
+    cross K/V moves against the unfused block order, over a prefill and
+    N_DECODE decode steps."""
+    cfg = get_smoke_config(arch).scaled(compute_dtype=_DTYPES[dtype_name][1])
+    model = Model(cfg).init(torch.Generator().manual_seed(4))
+    seq = S + model.n_prefix
+    extra = tio.make_batch(cfg, ShapeSpec("p", seq, B, "prefill"), seed=5)
+    toks = extra.pop("tokens").long()
+    steps = torch.from_numpy(_tokens(6, (N_DECODE, B, 1), cfg.vocab_size))
+    max_len = seq + N_DECODE
+    with torch.inference_mode():
+        got, cache = model.prefill(toks, max_len, **extra)
+        ref_cache = model.init_cache(B, max_len)
+        want = _unfused(model, toks, ref_cache, **extra)
+        assert torch.equal(got, want)
+        for n, tok in enumerate(steps.long()):
+            got, cache = model.decode_step(cache, tok)
+            want = _unfused(model, tok, ref_cache, pos=seq + n)
+            assert torch.equal(got, want), n
+    states = cache.blocks + (cache.cross or ())
+    refs = ref_cache.blocks + (ref_cache.cross or ())
+    assert len(states) == (2 if cfg.is_encdec else 1)
+    for st, ref in zip(states, refs):
+        assert torch.equal(st.k, ref.k) and torch.equal(st.v, ref.v)
 
 
 def test_forward_runs_one_plain_norm_and_the_rest_fused(monkeypatch):
@@ -422,12 +488,16 @@ def test_prefill_fills_a_given_cache_in_place():
 
 
 # ---------------------------------------- MoE and recurrent blocks, model --
-@pytest.mark.parametrize("arch", list(MOE_AND_RECURRENT))
+@pytest.mark.parametrize("arch", [*MOE_AND_RECURRENT, "whisper-medium",
+                                  "internvl2-1b"])
 def test_parameters_keep_the_jax_names_and_types(arch):
     """``named_parameters()`` are the JAX pytree's leaves, named as
     ``params_from_jax`` names them (``moe.router`` beside
-    ``moe.experts.w_gate``), with the same shapes; under bf16 compute the
-    norm scales and Mamba's A_log, D and dt_bias stay float32."""
+    ``moe.experts.w_gate``; whisper's ``enc_blocks.<layer>.attn.wq``,
+    ``enc_norm.scale``, ``blocks.<p>.<i>.cross_attn.wq`` and
+    ``cross_norm``; internvl2's ``vis_proj``), with the same shapes; under
+    bf16 compute the norm scales and Mamba's A_log, D and dt_bias stay
+    float32."""
     jcfg = jax_get_smoke_config(arch)
     tcfg = get_smoke_config(arch)
     params = JaxModel(jcfg).init(jax.random.key(0))
@@ -438,7 +508,7 @@ def test_parameters_keep_the_jax_names_and_types(arch):
     fp32 = ("scale", "A_log", "D", "dt_bias")
     for name, t in got.items():
         assert t.shape == want[name].shape, name
-        key = name.rsplit(".", 1)[1]
+        key = name.rpartition(".")[2]
         assert t.dtype == (torch.float32 if key in fp32
                            else torch.bfloat16), name
     drawn = Model(tcfg).init(torch.Generator().manual_seed(0))
@@ -495,3 +565,32 @@ def test_norms_fuse_with_the_adds_of_every_block_kind(arch, monkeypatch):
     assert calls == {"rmsnorm": 1, "add_rmsnorm": fused}
     model.decode_step(cache, torch.zeros((1, 1), dtype=torch.long))
     assert calls == {"rmsnorm": 2, "add_rmsnorm": 2 * fused}
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-1b"])
+def test_encdec_and_vision_norms_fuse_with_every_add(arch, monkeypatch):
+    """whisper: the encoder's first norm1 alone and 2 fused norms an
+    encoder layer (enc_norm last), then the decoder's first norm1 alone
+    and 3 fused a decoder layer (cross_norm, norm2, the next norm1) in a
+    prefill, the decoder's alone in a decode step; internvl2 as a dense
+    model, its patches adding no norm."""
+    calls = {"rmsnorm": 0, "add_rmsnorm": 0}
+    for name in calls:
+        fn = getattr(tlayers, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tlayers, name, counted)
+    cfg = get_smoke_config(arch)
+    model = Model(cfg).init(torch.Generator().manual_seed(0))
+    extra = tio.make_batch(cfg, ShapeSpec("p", 4 + model.n_prefix, 1,
+                                          "prefill"), seed=0)
+    toks = extra.pop("tokens").long()
+    _, cache = model.prefill(toks, 6 + model.n_prefix, **extra)
+    enc = cfg.n_encoder_layers
+    step = (3 if cfg.is_encdec else 2) * cfg.n_layers
+    assert calls == {"rmsnorm": 1 + (enc > 0), "add_rmsnorm": 2 * enc + step}
+    model.decode_step(cache, toks[:, :1])
+    assert calls == {"rmsnorm": 2 + (enc > 0),
+                     "add_rmsnorm": 2 * enc + 2 * step}
