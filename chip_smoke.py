@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths on one NVIDIA card: serving
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card: serving
 the five dense configs (llama3.1-8b, llama3.2-3b, qwen3-0.6b, qwen2.5-32b,
 command-r-35b), the MoE and recurrent ones (phi3.5-moe,
 llama4-maverick, xlstm-125m, jamba), whisper-medium's encoder-decoder
-path and internvl2-1b's vision stub, and the ALA pipeline (paper Alg
-1-8) on the paper's data and on the rows the card measures.
+path and internvl2-1b's vision stub, the ALA pipeline (paper Alg 1-8)
+on the paper's data and on the rows the card measures, and the serving
+stack with ALA in the loop (the roofline simulator, the fleet and heap
+engines, the autoscaler and the online refit).
 
     python3 chip_smoke.py
 
@@ -161,7 +163,24 @@ Phases, each printing its own lines:
     (d) both whole through ``measure_arch`` as phase [10] runs a model,
     exact launches, a graphed step beside its bound (rows printed, not
     fed to phase [11]);
-16. the kernel table as one JSON line (``main_path`` false for
+16. the serving stack, which runs no model: (a) the three datasets
+    (``inhouse``, ``suite``, ``mismatch``) made anew by the roofline
+    simulator, bit for bit ``results/data/*.npz``; (b)
+    ``benchmarks/run.py``'s ``fleet_engine`` scenario at its full size
+    (three tenants, diurnal load and flash crowds, 2,000 s, about 110,644
+    requests; llama3.1-8b on the simulator's TPU v5e profile at TP 4, 8
+    replicas) through the vectorized fleet engine, its decode
+    trajectories in numpy and then in float64 on the card
+    (``traj_backend="torch"``): accounting, events, end time and every
+    request's times equal; (c) the heap engine on the trace's first 60 s
+    against the fleet engine by the reference's parity rule; (d)
+    ``online_engine``'s closed loop at its full size: two models, 8
+    epochs of 20 s, each simulated with an ``ALAAutoscaler`` attached to
+    the ``OnlineALA`` on the card, its windows adapted and ingested (each
+    refit one ``gbt_grow`` launch a fit), the predictions then within
+    1e-6 of a from-scratch registry fit on the card; (e) printed, not a
+    gate: the simulator's H100 profile beside phase [8]'s measured rows;
+17. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
 
@@ -287,6 +306,27 @@ ENCDEC_HEADS = ((16, 16), (14, 2))
 CROSS_SQ = (1, 16, 128, 512)
 CROSS_SK = (63, 64, 65, 1500)
 WIDTH_VLM = 896   # K1 at internvl2's d_model
+# phase [16], the serving stack.  (b) benchmarks/run.py's fleet_engine
+# scenario at its full size: three tenants over 2,000 s (seed 42),
+# llama3.1-8b on the simulator's TPU v5e profile at TP 4 (the reference's
+# simulated deployment: data, not a speed claim), 8 replicas, batch cap
+# 64, 0.5 s buckets
+FLEET = dict(horizon_s=2000.0, seed=42, batch_cap=64, n_replicas=8,
+             bucket_s=0.5)
+# (c) the heap engine on the trace's first 60 s, held to the fleet engine
+# by the reference's parity rule (tests/test_fleet_parity.py::
+# _assert_close): |TTFT| and |E2E| differences at p95 within its 0.35 s
+# (written for 0.1 s buckets, so widened by this scenario's 0.5 s), at
+# most 6 s, at most 5% beyond the p95 bound; TPOT's p95 within 0.05 s
+HEAP_SLICE_S = 60.0
+PARITY = dict(p95_s=0.35 + FLEET["bucket_s"], outlier_s=6.0,
+              outlier_frac=0.05, tpot_s=0.05)
+# (d) benchmarks/run.py's online_engine at its full size: two models, 8
+# epochs of 20 s, its calibration grid, SA 20 iterations x 2 chains,
+# warm_iters 6; its predictions held to a from-scratch registry fit
+# within its 1e-6
+ONLINE_LOOP = dict(archs=("llama3.1-8b", "qwen2.5-32b"), n_epochs=8,
+                   epoch_s=20.0, parity=1e-6)
 
 
 def _smi() -> str:
@@ -2434,6 +2474,318 @@ def baselines_phase(smi, ala_medape):
     return all(checks.values()), launches
 
 
+def _fleet_trace(horizon_s, seed):
+    """benchmarks/run.py's fleet_engine workload: chat (Poisson 30/s,
+    diurnal amplitude 0.4), summarize (Gamma 8/s, cv 2) and generate
+    (MMPP 12/24 per s, two x3 flash crowds of 15 s)."""
+    from repro_torch.serving.traces import (FleetTraceConfig, TenantConfig,
+                                            TraceConfig, make_fleet_trace,
+                                            mix)
+    return make_fleet_trace(FleetTraceConfig(tenants=(
+        TenantConfig(name="chat",
+                     trace=TraceConfig(arrival="poisson", rate=30.0,
+                                       shape_mix=mix(("chat", 1.0))),
+                     ttft_slo_s=1.5, diurnal_amp=0.4),
+        TenantConfig(name="summarize",
+                     trace=TraceConfig(arrival="gamma", rate=8.0, cv=2.0,
+                                       shape_mix=mix(("summarize", 1.0))),
+                     ttft_slo_s=8.0),
+        TenantConfig(name="generate",
+                     trace=TraceConfig(arrival="mmpp", rate=12.0,
+                                       burst_rate=24.0,
+                                       shape_mix=mix(("generate", 1.0))),
+                     ttft_slo_s=4.0, flash_crowds=2, flash_mult=3.0,
+                     flash_dur_s=15.0),
+    ), horizon_s=horizon_s, seed=seed))
+
+
+def _engine_parity(heap, fleet):
+    """The reference's parity rule between the heap and the fleet engine
+    (``PARITY``).  Returns (ok, what it read)."""
+    hv = {r.rid: r for r in heap.records}
+    ttft, e2e, tpot, same_shed = [], [], [], True
+    for r in fleet.records:
+        h = hv[r.rid]
+        same_shed = same_shed and h.shed == r.shed
+        if h.first_token_s is not None and r.first_token_s is not None:
+            ttft.append(abs(r.first_token_s - h.first_token_s))
+        if h.done_s is not None and r.done_s is not None:
+            e2e.append(abs(r.done_s - h.done_s))
+            if h.oo > 1:
+                tpot.append(abs((r.done_s - r.first_token_s) / (r.oo - 1)
+                                - (h.done_s - h.first_token_s) / (h.oo - 1)))
+    ok = (same_shed and heap.accounting() == fleet.accounting()
+          and len(hv) == len(fleet.records))
+    parts = []
+    for name, d in (("TTFT", ttft), ("E2E", e2e)):
+        d = np.asarray(d)
+        p95, beyond = float(np.percentile(d, 95)), float(
+            np.mean(d > PARITY["p95_s"]))
+        ok = ok and (p95 <= PARITY["p95_s"] and d.max() <= PARITY["outlier_s"]
+                     and beyond <= PARITY["outlier_frac"])
+        parts.append(f"|{name}| p50 {np.percentile(d, 50):.4f} s, p95 "
+                     f"{p95:.4f} s (limit {PARITY['p95_s']}), max "
+                     f"{d.max():.4f} s (limit {PARITY['outlier_s']}), beyond "
+                     f"the p95 limit {100 * beyond:.2f}% (limit "
+                     f"{100 * PARITY['outlier_frac']:.0f}%)")
+    tp95 = float(np.percentile(tpot, 95))
+    ok = ok and tp95 <= PARITY["tpot_s"]
+    parts.append(f"|TPOT| p95 {tp95:.5f} s (limit {PARITY['tpot_s']})")
+    return ok, "; ".join(parts)
+
+
+def online_loop(smi, device=None):
+    """Phase 16 (d): benchmarks/run.py's online_engine closed loop at its
+    full size, the port's OnlineALA on ``device`` (None: the card): each
+    epoch serves one model's slice of its MMPP trace through the heap
+    engine with an ALAAutoscaler attached to the engine, adapts the
+    steady-state windows and ingests them.  Returns (ok, K4 launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.annealing import SAConfig
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.online import OnlineALA, OnlineConfig
+    from repro_torch.core.registry import ModelRegistry
+    from repro_torch.perfmodel.hardware import TPU_V5E, feature_row
+    from repro_torch.perfmodel.simulator import (ServingSetup,
+                                                 sample_throughput,
+                                                 throughput)
+    from repro_torch.serving.adapter import TRACE_BACKEND, windows_to_dataset
+    from repro_torch.serving.autoscaler import ALAAutoscaler
+    from repro_torch.serving.simulator import SimConfig, simulate
+    from repro_torch.serving.traces import TraceConfig, make_trace, mix
+    archs, n_epochs = ONLINE_LOOP["archs"], ONLINE_LOOP["n_epochs"]
+    epoch_s = ONLINE_LOOP["epoch_s"]
+    ref_ii, ref_oo = 512, 192
+    grid = [(ii, oo, bb) for ii in (128, 256, 512, 1024, 2048)
+            for oo in (64, 128, 256, 512)
+            for bb in (1, 2, 4, 8, 16, 32, 64, 128)]
+    sa = SAConfig(n_iters=20, n_chains=2, seed=0,
+                  gbt_kw=dict(n_estimators=20, learning_rate=0.2,
+                              max_depth=3))
+    gbt_kw = dict(n_estimators=20, learning_rate=0.15)
+    eng = OnlineALA(OnlineConfig(sa=sa, warm_iters=6,
+                                 gbt_kw=dict(sa.gbt_kw)), device=device)
+    setups, traces, scalers, seed_rows = {}, {}, {}, []
+    for arch in archs:
+        cfg = get_config(arch)
+        chips = 8 if cfg.param_count() > 1e10 else 4
+        setups[arch] = ServingSetup(cfg=cfg, hw=TPU_V5E, chips=chips)
+        rng = np.random.default_rng(0)
+        seed_rows += [dict(model=arch, acc=TPU_V5E.name, acc_count=chips,
+                           back=TRACE_BACKEND, prec="bf16", mode="serve",
+                           ii=ii, oo=oo, bb=bb, thpt=float(t),
+                           **feature_row(TPU_V5E))
+                      for ii, oo, bb in grid
+                      for t in sample_throughput(setups[arch], ii, oo, bb,
+                                                 2, rng)]
+        cap = throughput(setups[arch], ref_ii, ref_oo, 64) / ref_oo
+        traces[arch] = make_trace(TraceConfig(
+            arrival="mmpp", rate=0.7 * cap, burst_rate=2.0 * cap,
+            horizon_s=n_epochs * epoch_s,
+            shape_mix=mix(("chat", 0.7), ("generate", 0.3)), seed=29))
+    checks = {"conservation": True}
+    _zero_k4()
+    t0 = time.perf_counter()
+    rep = eng.ingest(Dataset.from_rows(seed_rows), **gbt_kw)
+    print(f"[16] (d) epoch 0: {rep.n_rows} calibration rows, "
+          f"{len(rep.refit)} refits, ingest {time.perf_counter() - t0:.3f} s "
+          f"(registry {rep.registry_s:.3f} s, uncertainty "
+          f"{rep.uncertainty_s:.3f} s) [{smi}]")
+    for arch in archs:
+        combo = eng.combo_of(next(r for r in seed_rows if r["model"] == arch))
+        scalers[arch] = ALAAutoscaler(ala=eng.ala_for(combo), online=eng,
+                                      combo=combo, max_replicas=4)
+    n_epochs_ingested = 0
+    for e in range(n_epochs):
+        arch = archs[e % len(archs)]
+        tr = traces[arch].slice(e * epoch_s, (e + 1) * epoch_s)
+        t0 = time.perf_counter()
+        res = simulate(tr, SimConfig(setup=setups[arch], batch_cap=64,
+                                     n_replicas=1, max_replicas=4,
+                                     t_start=e * epoch_s), scalers[arch])
+        sim_s = time.perf_counter() - t0
+        try:
+            res.check_conservation()
+        except RuntimeError as err:
+            checks["conservation"] = False
+            print(f"[16] (d) epoch {e + 1}: {err}")
+        try:
+            delta = windows_to_dataset(res, setups[arch], arch,
+                                       window_s=epoch_s / 8.0)
+        except ValueError:
+            print(f"[16] (d) epoch {e + 1}: {arch}, {len(tr)} requests, no "
+                  f"steady-state window")
+            continue
+        t0 = time.perf_counter()
+        rep = eng.ingest(delta, **gbt_kw)
+        ingest_s = time.perf_counter() - t0
+        n_epochs_ingested += 1
+        drifted = {c[0]: d.drifted for c, d in rep.drift.items()}
+        print(f"[16] (d) epoch {e + 1}: {arch}, {len(tr)} requests "
+              f"{res.accounting()}, {len(res.controls)} control ticks, "
+              f"replicas {sorted({a.n_replicas for _, a in res.controls})}; "
+              f"simulated in {sim_s:.3f} s; {rep.n_rows} rows ingested in "
+              f"{ingest_s:.3f} s (registry {rep.registry_s:.3f} s, "
+              f"uncertainty {rep.uncertainty_s:.3f} s), refits "
+              f"{[c[0] for c in rep.refit]}, drift flags {drifted}, "
+              f"recalibration requests so far "
+              f"{sum(len(s.recalibrations) for s in scalers.values())}")
+    k4 = _read_k4()
+    launches = {k: k4[k] for k in ("gbt_hist", "gbt_split", "gbt_grow")}
+    checks["every refit one gbt_grow launch a fit"] = (
+        k4["fits"] > 0 and _one_launch_a_fit(k4)) if device is None else True
+    checks["epochs ingested"] = n_epochs_ingested == n_epochs
+    full = eng.full_data()
+    t0 = time.perf_counter()
+    scratch = ModelRegistry(device=device).fit(full, **gbt_kw)
+    scratch_s = time.perf_counter() - t0
+    p_inc, p_scr = eng.predict(full), scratch.predict(full)
+    parity = float(np.abs(p_inc - p_scr).max())
+    checks[f"incremental = from-scratch fit within {ONLINE_LOOP['parity']}"] \
+        = bool(np.all(np.isfinite(p_inc))) and parity <= ONLINE_LOOP["parity"]
+    print(f"[16] (d) {len(full)} rows in all; K4 launches gbt_grow "
+          f"{k4['gbt_grow']} for {k4['fits']} fits on the card ({k4['levels']}"
+          f" levels), gbt_hist {k4['gbt_hist']}, gbt_split {k4['gbt_split']}"
+          f", host levels {k4['host_levels']}, LM solves {k4['solves']}; "
+          f"predictions against a from-scratch registry fit ({scratch_s:.3f}"
+          f" s): max abs difference {parity!r}; checks: "
+          + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in
+                      checks.items()))
+    return all(checks.values()), launches
+
+
+def serving_phase(smi, llama_rows, device=None):
+    """Phase 16: the port's serving stack.  (a) the three datasets made
+    anew, bit for bit the cache; (b) the fleet_engine scenario, the numpy
+    trajectories and then the torch ones on ``device`` (None: the card),
+    equal; (c) the heap engine on its first 60 s against the fleet engine,
+    the reference's parity rule; (d) ``online_loop``; (e) printed: the
+    simulator's H100 profile beside phase [8]'s measured rows.  Returns
+    (ok, {kernel: launches})."""
+    from repro_torch.bench import datasets
+    from repro_torch.configs import get_config
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.perfmodel.hardware import H100_SXM, TPU_V5E
+    from repro_torch.perfmodel.simulator import ServingSetup, throughput
+    from repro_torch.serving.fleet import VectorFleetSimulator
+    from repro_torch.serving.simulator import SimConfig, simulate
+    checks = {}
+    # (a) the datasets
+    for name, make in (("inhouse", datasets.make_inhouse_dataset),
+                       ("suite", datasets.make_suite_dataset),
+                       ("mismatch", datasets.make_mismatch_dataset)):
+        t0 = time.perf_counter()
+        made = make()
+        made_s = time.perf_counter() - t0
+        cache = Dataset.load(datasets.DATA_DIR / name)
+        same = len(made) == len(cache) and all(
+            made[k].dtype == cache[k].dtype
+            and made[k].tobytes() == cache[k].tobytes() for k in cache.cols)
+        checks[f"(a) {name} = results/data/{name}.npz"] = same
+        print(f"[16] (a) {name}: {len(made)} rows made anew in {made_s:.3f} s"
+              f" on the host; bit for bit the cache in its "
+              f"{len(cache.cols)} columns (thpt included): {same}")
+    # (b) the fleet engine, numpy trajectories against torch on the card
+    t0 = time.perf_counter()
+    tr = _fleet_trace(FLEET["horizon_s"], FLEET["seed"])
+    print(f"[16] (b) fleet_engine trace: {len(tr)} requests over "
+          f"{FLEET['horizon_s']:.0f} s, made in {time.perf_counter() - t0:.3f}"
+          f" s")
+    setup = ServingSetup(cfg=get_config(ARCH), hw=TPU_V5E, chips=4)
+    base = dict(setup=setup, batch_cap=FLEET["batch_cap"],
+                n_replicas=FLEET["n_replicas"],
+                max_replicas=FLEET["n_replicas"], bucket_s=FLEET["bucket_s"])
+    runs, walls = {}, {}
+    for backend in ("numpy", "torch"):
+        sim = VectorFleetSimulator(tr, SimConfig(traj_backend=backend,
+                                                 device=device, **base))
+        t0 = time.perf_counter()
+        res = sim.run()
+        wall = walls[backend] = time.perf_counter() - t0
+        runs[backend] = res
+        print(f"[16] (b) {backend} trajectories: {wall:.3f} s wall, "
+              f"{res.n_events} events ({res.n_events / wall:.0f} a second), "
+              f"{sim.traj_calls} trajectory calls of "
+              f"{sim.traj_steps / max(sim.traj_calls, 1):.1f} steps on "
+              f"average, {res.accounting()}, sim_end_s {res.sim_end_s!r} "
+              f"[{smi}]")
+    a, b = runs["numpy"], runs["torch"]
+    try:
+        a.check_conservation()
+        b.check_conservation()
+        conserved = True
+    except RuntimeError:
+        conserved = False
+    same = (conserved and a.accounting() == b.accounting()
+            and a.n_events == b.n_events and a.sim_end_s == b.sim_end_s
+            and all(a.req[k].tobytes() == b.req[k].tobytes()
+                    for k in ("first_token_s", "done_s", "replica")))
+    checks["(b) torch = numpy, accounting, events, per-request times bit "
+           "for bit"] = same
+    print(f"[16] (b) the card's trajectories against numpy's: accounting, "
+          f"n_events, sim_end_s equal and done_s, first_token_s bit for bit: "
+          f"{same}; torch / numpy wall {walls['torch'] / walls['numpy']:.2f}x")
+    if device is None:
+        # where a call's time goes: 100 calls at the run's mean length
+        from repro_torch.serving.fleet import _TorchTraj
+        k = round(sim.traj_steps / max(sim.traj_calls, 1))
+        traj, bb = _TorchTraj(setup, device), np.full(k, 32.0)
+
+        def calls():
+            for _ in range(100):
+                traj(bb, bb * 700.0)
+
+        wall, busy, top, host, _ = _device_profile(calls, warm=True)
+        print(f"[16] (b) 100 trajectory calls of {k} steps traced: "
+              f"{wall / 100:.4f} ms a call, the device busy "
+              f"{busy / 100:.4f} ms of it ({100 * busy / wall:.1f}%), "
+              f"{sum(n for _, n, _ in top) / 100:.0f} device kernels and "
+              f"copies a call: "
+              + "; ".join(f"{name[:40]} x{n} {ms:.3f} ms"
+                          for name, n, ms in top[:4])
+              + "; host ops (self CPU): "
+              + "; ".join(f"{name[:30]} x{n} {ms:.3f} ms"
+                          for name, n, ms in host[:5]) + f" [{smi}]")
+    # (c) the heap engine on the first 60 s against the fleet engine
+    part = tr.slice(0.0, HEAP_SLICE_S)
+    cfg = SimConfig(**base)
+    t0 = time.perf_counter()
+    heap = simulate(part, cfg, engine="heap")
+    heap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = simulate(part, cfg, engine="fleet")
+    fleet_s = time.perf_counter() - t0
+    ok_c, text = _engine_parity(heap, fleet)
+    checks["(c) heap against fleet by the reference's parity rule"] = ok_c
+    print(f"[16] (c) the first {HEAP_SLICE_S:.0f} s, {len(part)} requests: "
+          f"heap {heap_s:.3f} s ({heap.n_events} events, "
+          f"{heap.n_events / heap_s:.0f} a second), fleet {fleet_s:.3f} s "
+          f"({fleet.n_events} events); {text}: {'ok' if ok_c else 'FAIL'}")
+    # (d) the closed loop
+    t0 = time.perf_counter()
+    ok_d, launches = online_loop(smi, device)
+    checks["(d) closed loop"] = ok_d
+    print(f"[16] (d) closed loop: {time.perf_counter() - t0:.1f} s")
+    # (e) the simulator's H100 profile beside the card's rows
+    h100 = ServingSetup(cfg=get_config(ARCH), hw=H100_SXM, chips=1)
+    ii, oo, bb, thpt = llama_rows.workload
+    ratios = []
+    for cell in sorted({(int(x), int(y), int(z)) for x, y, z in
+                        zip(ii, oo, bb)}):
+        at = (ii == cell[0]) & (oo == cell[1]) & (bb == cell[2])
+        measured = float(np.mean(thpt[at]))
+        predicted = throughput(h100, *cell)
+        ratios.append(measured / predicted)
+        print(f"[16] (e) {ARCH} (ii, oo, bb) = {cell}: the card "
+              f"{measured:.1f} tok/s, the simulator's {H100_SXM.name} "
+              f"profile {predicted:.1f}, card / profile {ratios[-1]:.3f}")
+    print(f"[16] (e) card / profile {min(ratios):.3f} to {max(ratios):.3f} "
+          f"(median {float(np.median(ratios)):.3f}) [{smi}]")
+    print("[16] checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                      for k, v in checks.items()))
+    return all(checks.values()), launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on a GPU",
@@ -2864,7 +3216,17 @@ def main() -> int:
     print(f"[15] encoder-decoder and vision: {'ok' if ok15 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # -- 16. result -----------------------------------------------------------
+    # -- 16. the serving stack: the datasets made anew, the fleet engine's
+    # trajectories on the card, heap against fleet, the closed loop with
+    # ALA in it -----------------------------------------------------------
+    t0 = time.perf_counter()
+    ok16, grew = serving_phase(smi, llama_rows)
+    for k, n in grew.items():
+        launches[k] += n
+    print(f"[16] serving stack: {'ok' if ok16 else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 17. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
                "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -2902,10 +3264,11 @@ def main() -> int:
               "[10] full depth": ok10, **results,
               "[14] MoE and recurrent blocks": ok14,
               "[15] encoder-decoder and vision": ok15,
-              "[16] launches": all(
+              "[16] serving stack": ok16,
+              "[17] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())
-    print(f"[16] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+    print(f"[17] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
           + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not ok:
         failed = [name for name, good in phases.items() if not good]

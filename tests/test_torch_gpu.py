@@ -17,7 +17,10 @@ ALA's device paths (LM solve, forest traversal, bank distances) to their
 CPU contracts; K4's split step and its whole-fit kernel (``gbt_grow``,
 one launch a fit) to their plain versions bit for bit, the forests grown
 on the card to the host loop's over K4's plain histograms, and a small ALA
-run's launches to its fits.  Every test needs a card and
+run's launches to its fits; the fleet engine's decode trajectories in
+float64 on the card (``traj_backend="torch"``) against numpy's, bit for
+bit on a dense config, within 1e-9 s on a MoE one, and refused without
+a card.  Every test that needs a card
 skips without one; this file imports no JAX, so it runs where only torch
 is installed:
 
@@ -1092,3 +1095,73 @@ def test_encdec_and_vision_decode_graphs_are_the_eager_steps(cuda, arch):
     assert int(graph.cache.pos_t) == seq + 16
     for st, ref in zip(graph.cache.cross or (), cache.cross or ()):
         assert all(torch.equal(a, b) for a, b in zip(st, ref))
+
+
+def _serving_trace(horizon_s):
+    from repro_torch.serving.traces import (FleetTraceConfig, TenantConfig,
+                                            TraceConfig, make_fleet_trace,
+                                            mix)
+    return make_fleet_trace(FleetTraceConfig(tenants=(
+        TenantConfig(name="chat", trace=TraceConfig(
+            arrival="poisson", rate=12.0, shape_mix=mix(("chat", 1.0))),
+            diurnal_amp=0.4, diurnal_period_s=60.0),
+        TenantConfig(name="generate", trace=TraceConfig(
+            arrival="mmpp", rate=4.0, burst_rate=10.0,
+            shape_mix=mix(("generate", 1.0))), flash_crowds=2,
+            flash_mult=3.0, flash_dur_s=8.0),
+    ), horizon_s=horizon_s, seed=7))
+
+
+@pytest.mark.parametrize("arch,hw,chips", [
+    ("llama3.1-8b", "tpu-v5e", 4),
+    ("llama4-maverick-400b-a17b", "gpu-mi300x", 8)])
+def test_fleet_trajectories_on_the_card_equal_numpy(cuda, arch, hw, chips):
+    """The fleet engine's ``traj_backend="torch"`` on the card against
+    ``"numpy"`` on a seeded trace with crashes and stragglers: a dense
+    config bit for bit in every array; llama4-maverick (MoE: the device's
+    ``pow`` in the expert-hit term) with the same accounting and events
+    and every time within 1e-9 s."""
+    from repro_torch.configs import get_config
+    from repro_torch.perfmodel.hardware import PROFILES
+    from repro_torch.perfmodel.simulator import ServingSetup
+    from repro_torch.serving.faults import FaultConfig, injector
+    from repro_torch.serving.simulator import SimConfig, simulate
+    tr = _serving_trace(120.0)
+    setup = ServingSetup(get_config(arch), PROFILES[hw], chips=chips)
+
+    def run(backend):
+        return simulate(tr, SimConfig(
+            setup=setup, n_replicas=3, bucket_s=0.25, traj_backend=backend,
+            faults=injector(FaultConfig(seed=2, horizon_s=120.0,
+                                        n_replicas=3, mttf_s=40.0,
+                                        straggler_rate_hz=0.05)),
+            max_retries=1), engine="fleet")
+
+    want, got = run("numpy"), run("torch")
+    assert got.accounting() == want.accounting()
+    assert want.accounting()["completed"] > 500
+    assert got.n_events == want.n_events
+    moe = arch.startswith("llama4")
+    for k in want.req:
+        a, b = got.req[k], want.req[k]
+        if b.dtype == object:
+            assert a.tolist() == b.tolist(), k
+        elif moe and b.dtype == np.float64:
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+        else:
+            assert a.tobytes() == b.tobytes(), k
+
+
+def test_fleet_torch_trajectories_without_a_card_raise(monkeypatch):
+    """``traj_backend="torch"`` means the card unless the caller asks for
+    the CPU: with no CUDA device it raises and never runs on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.perfmodel.hardware import TPU_V5E
+    from repro_torch.perfmodel.simulator import ServingSetup
+    from repro_torch.serving.fleet import VectorFleetSimulator
+    from repro_torch.serving.simulator import SimConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SimConfig(setup=ServingSetup(get_config("llama3.1-8b"), TPU_V5E),
+                    traj_backend="torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VectorFleetSimulator(_serving_trace(10.0), cfg)
