@@ -4,9 +4,10 @@ the five dense configs (llama3.1-8b, llama3.2-3b, qwen3-0.6b, qwen2.5-32b,
 command-r-35b), the MoE and recurrent ones (phi3.5-moe,
 llama4-maverick, xlstm-125m, jamba), whisper-medium's encoder-decoder
 path and internvl2-1b's vision stub, the ALA pipeline (paper Alg 1-8)
-on the paper's data and on the rows the card measures, and the serving
+on the paper's data and on the rows the card measures, the serving
 stack with ALA in the loop (the roofline simulator, the fleet and heap
-engines, the autoscaler and the online refit).
+engines, the autoscaler and the online refit) and its observability
+layer (spans, the calibration audit, the Chrome trace).
 
     python3 chip_smoke.py
 
@@ -180,7 +181,26 @@ Phases, each printing its own lines:
     refit one ``gbt_grow`` launch a fit), the predictions then within
     1e-6 of a from-scratch registry fit on the card; (e) printed, not a
     gate: the simulator's H100 profile beside phase [8]'s measured rows;
-17. the kernel table as one JSON line (``main_path`` false for
+17. the observability layer, ``benchmarks/run.py``'s ``obs_engine`` at
+    its full size (three tenants over 600 s, 33,277 requests, the
+    deployment of (16) (b)): (a) the fleet engine untraced and traced at
+    sample rate 1 (the minimum of 3 runs each, in turns), the traced run
+    equal to the untraced one plus its spans, and the time that deriving
+    the spans adds under 5% of the untraced run's, with a
+    span for every request; (b) the traced run with its trajectories on
+    the card, its ``SpanTable`` equal to numpy's in every column, and a
+    run capped at 20,000 step records on both backends with equal
+    dropped counts, step arrays and totals; (c) heap against fleet spans
+    over the first 60 s (exact counts, TTFT and E2E percentiles within
+    the bucket's tolerance); (d) per-tenant TTFT shards merged within a
+    bin of the exact p95, and the queue-depth series; (e) the Chrome
+    trace written to ``chiprun_out/``; (f) the miscalibrated-prior online
+    loop, one ``CalibrationAudit`` fed by the ``OnlineALA`` on the card
+    and by the ``ALAAutoscaler``: at least 5 ticks, a refit event, a
+    monotone reliability curve, each refit's fits one ``gbt_grow``
+    launch, its summary beside the reference's CPU record and its events
+    written to ``chiprun_out/``;
+18. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
 
@@ -189,6 +209,7 @@ without them or when any phase fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -327,6 +348,25 @@ PARITY = dict(p95_s=0.35 + FLEET["bucket_s"], outlier_s=6.0,
 # within its 1e-6
 ONLINE_LOOP = dict(archs=("llama3.1-8b", "qwen2.5-32b"), n_epochs=8,
                    epoch_s=20.0, parity=1e-6)
+# phase [17], the observability layer: benchmarks/run.py's obs_engine at
+# its full size.  (a) to (e): its three-tenant fleet trace over 600 s
+# (seed 42; phase [16] (b)'s tenants and deployment), the tracing
+# overhead gated on the minimum of 3 runs each way, a run capped at
+# max_steps step records, heap against fleet over the first 60 s, and the
+# Chrome trace's event caps; (f) at least min_ticks audited ticks
+OBS = dict(horizon_s=600.0, seed=42, runs=3, overhead=0.05, parity_s=60.0,
+           max_steps=20000, max_step_events=20000, max_span_events=5000,
+           min_ticks=5)
+# (f) the miscalibrated-prior online loop: 6 epochs of 20 s, its seed grid
+# at 0.6 of the simulator's throughput
+OBS_CAL = dict(n_epochs=6, epoch_s=20.0, derate=0.6)
+# the reference's CPU run of obs_engine (results/BENCH_obs.json), printed
+# beside the card's readings; of these only the seeded trace's request
+# and event counts are gates
+OBS_REF = dict(n_requests=33277, n_events=587307, trace_events=35025,
+               calibration=dict(n_ticks=114, refit=7, events=152,
+                                accuracy_rate=0.518,
+                                ape_over_pred_err=1.019, bins=2))
 
 
 def _smi() -> str:
@@ -425,21 +465,25 @@ def time_ms(fn, arg_sets, iters=60):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, arg_sets, kernel=None, calls=20, passes=3):
+def device_ms(fn, arg_sets, kernel=None, calls=20, passes=6):
     """Device ms per launch of the CUDA kernels whose names hold ``kernel``
     ("" matches every kernel), or, with ``kernel=None``, device ms of all
     the work of one call, from
     one torch.profiler pass over ``calls`` calls of ``fn`` after a warm-up,
     outputs held as ``time_ms`` holds them.  A pass whose trace holds no
     such kernel (the tracer now and then returns one without device
-    events) is made again, up to ``passes`` in all; then it raises."""
+    events, three passes in a row once in phase [4]) is made again, up to
+    ``passes`` in all, every other one tracing the host too; then it
+    raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     n = len(arg_sets)
     outs = [fn(*args) for args in arg_sets]
     torch.cuda.synchronize()
-    for _ in range(passes):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(passes):
+        activities = [ProfilerActivity.CUDA] + \
+            [ProfilerActivity.CPU] * (attempt % 2)
+        with profile(activities=activities) as prof:
             for i in range(calls):
                 outs[i % n] = fn(*arg_sets[i % n])
             torch.cuda.synchronize()
@@ -2786,6 +2830,290 @@ def serving_phase(smi, llama_rows, device=None):
     return all(checks.values()), launches
 
 
+def _same_spans(a, b) -> bool:
+    """Two SpanTables equal in every column bit for bit (the object
+    columns by value), with the same sampling bookkeeping."""
+    from repro_torch.obs.tracing import SpanTable
+    for f in dataclasses.fields(SpanTable):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(y, np.ndarray):
+            if x.dtype != y.dtype or x.shape != y.shape or not (
+                    x.tolist() == y.tolist() if y.dtype == object
+                    else x.tobytes() == y.tobytes()):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _same_steps(a, b) -> bool:
+    return (a.steps_dropped == b.steps_dropped
+            and a.step_totals == b.step_totals
+            and list(a.step_arrays) == list(b.step_arrays)
+            and all(a.step_arrays[k].tobytes() == b.step_arrays[k].tobytes()
+                    for k in b.step_arrays))
+
+
+def calibration_loop(smi, device=None):
+    """Phase 17 (f): obs_engine's calibration audit at its full size, the
+    port's OnlineALA on ``device`` (None: the card) and an ALAAutoscaler
+    feeding one CalibrationAudit.  The seed grid is the roofline
+    simulator's throughput derated to ``OBS_CAL["derate"]``, so early
+    ticks are wrong at whatever confidence Alg 8 reports; each epoch's
+    windows are adapted and ingested.  Returns (ok, audit, K4 counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.annealing import SAConfig
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.online import OnlineALA, OnlineConfig
+    from repro_torch.obs import CalibrationAudit, ObsConfig
+    from repro_torch.perfmodel.hardware import TPU_V5E, feature_row
+    from repro_torch.perfmodel.simulator import (ServingSetup,
+                                                 sample_throughput,
+                                                 throughput)
+    from repro_torch.serving.adapter import (TRACE_BACKEND,
+                                             summarize_windows,
+                                             windows_to_rows)
+    from repro_torch.serving.autoscaler import ALAAutoscaler
+    from repro_torch.serving.simulator import SimConfig, simulate
+    from repro_torch.serving.traces import TraceConfig, make_trace, mix
+    n_epochs, epoch_s = OBS_CAL["n_epochs"], OBS_CAL["epoch_s"]
+    setup = ServingSetup(cfg=get_config(ARCH), hw=TPU_V5E, chips=4)
+    cap_req_s = throughput(setup, 512, 192, 64) / 192
+    cal_tr = make_trace(TraceConfig(
+        arrival="mmpp", rate=1.2 * cap_req_s, burst_rate=2.5 * cap_req_s,
+        horizon_s=n_epochs * epoch_s,
+        shape_mix=mix(("chat", 0.7), ("generate", 0.3)), seed=43))
+    grid = [(ii, oo, bb) for ii in (128, 256, 512, 1024, 2048)
+            for oo in (64, 128, 256) for bb in (1, 4, 16, 64)]
+    sa = SAConfig(n_iters=12, n_chains=2, seed=0,
+                  gbt_kw=dict(n_estimators=20, learning_rate=0.2,
+                              max_depth=3))
+    gbt_kw = dict(n_estimators=20, learning_rate=0.15)
+    rng = np.random.default_rng(0)
+    seed_rows = [dict(model=ARCH, acc=TPU_V5E.name, acc_count=4,
+                      back=TRACE_BACKEND, prec="bf16", mode="serve",
+                      ii=ii, oo=oo, bb=bb, thpt=OBS_CAL["derate"] * float(t),
+                      **feature_row(TPU_V5E))
+                 for ii, oo, bb in grid
+                 for t in sample_throughput(setup, ii, oo, bb, 1, rng)]
+    audit = CalibrationAudit(cfg=ObsConfig())
+    eng = OnlineALA(OnlineConfig(sa=sa, warm_iters=5,
+                                 gbt_kw=dict(sa.gbt_kw)), audit=audit,
+                    device=device)
+    _zero_k4()
+    t0 = time.perf_counter()
+    eng.ingest(Dataset.from_rows(seed_rows), **gbt_kw)
+    combo = eng.combo_of(seed_rows[0])
+    scaler = ALAAutoscaler(ala=eng.ala_for(combo), online=eng, combo=combo,
+                           max_replicas=4, audit=audit, drift_window=4,
+                           drift_ape_threshold=25.0)
+    for e in range(n_epochs):
+        etr = cal_tr.slice(e * epoch_s, (e + 1) * epoch_s)
+        if not len(etr):
+            continue
+        res = simulate(etr, SimConfig(
+            setup=setup, batch_cap=64, n_replicas=2, max_replicas=4,
+            t_start=e * epoch_s, control_interval_s=1.0), scaler)
+        rows = windows_to_rows(
+            summarize_windows(res, window_s=epoch_s / 8.0), setup, ARCH)
+        if rows:
+            eng.ingest(Dataset.from_rows(rows), **gbt_kw)
+    loop_s = time.perf_counter() - t0
+    k4 = _read_k4()
+    cal = audit.summary()
+    acc = cal["reliability"]["bin_acc"]
+    checks = {
+        f"(f) >= {OBS['min_ticks']} ticks":
+            cal["n_ticks"] >= OBS["min_ticks"],
+        "(f) >= 1 refit event": audit.counts.get("refit", 0) >= 1,
+        "(f) bin_acc monotone": len(acc) >= 1 and all(
+            acc[i] <= acc[i + 1] + 1e-12 for i in range(len(acc) - 1)),
+        "(f) one gbt_grow launch a fit": (k4["fits"] > 0
+                                          and _one_launch_a_fit(k4))
+        if device is None else True}
+    print(f"[17] (f) calibration loop: {n_epochs} epochs of {epoch_s:.0f} s,"
+          f" {len(seed_rows)} seed rows derated to {OBS_CAL['derate']}, "
+          f"{loop_s:.1f} s; K4 launches gbt_grow {k4['gbt_grow']} for "
+          f"{k4['fits']} fits on the card ({k4['levels']} levels), gbt_hist "
+          f"{k4['gbt_hist']}, gbt_split {k4['gbt_split']}, host levels "
+          f"{k4['host_levels']} [{smi}]")
+    print(f"[17] (f) audit: events {cal['n_events']} (retained "
+          f"{cal['n_events_retained']}), ticks {cal['n_ticks']}, accuracy "
+          f"rate {cal['accuracy_rate']!r}, median APE {cal['median_ape']!r}, "
+          f"median predicted error {cal['median_pred_err']!r}, "
+          f"ape_over_pred_err {cal.get('ape_over_pred_err')!r}, median "
+          f"confidence {cal['median_confidence']!r}, reliability "
+          f"{cal['reliability']}; the reference's CPU record "
+          f"(results/BENCH_obs.json): {OBS_REF['calibration']}")
+    launches = {k: k4[k] for k in ("gbt_hist", "gbt_split", "gbt_grow")}
+    return checks, audit, launches
+
+
+def obs_phase(smi, device=None):
+    """Phase 17: benchmarks/run.py's obs_engine at its full size through
+    the port's obs layer.  (a) the fleet engine untraced and traced at
+    sample rate 1 on the card's host, the span derivation's time against
+    the untraced run's; (b) the traced run with ``traj_backend="torch"`` on ``device`` (None: the
+    card), spans and capped step logs equal to numpy's; (c) heap against
+    fleet spans over the first 60 s; (d) per-tenant TTFT shards merged;
+    (e) the Chrome trace into ``chiprun_out/``; (f) ``calibration_loop``.
+    Returns (ok, {kernel: launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.obs import (ObsConfig, StreamHist, percentile_with_inf,
+                                 write_chrome_trace, write_jsonl)
+    from repro_torch.obs.tracing import (queue_depth_series, record_spans,
+                                         span_hists, span_stats)
+    from repro_torch.perfmodel.hardware import TPU_V5E
+    from repro_torch.perfmodel.simulator import ServingSetup
+    from repro_torch.serving.simulator import SimConfig, simulate
+    checks = {}
+    tr = _fleet_trace(OBS["horizon_s"], OBS["seed"])
+    setup = ServingSetup(cfg=get_config(ARCH), hw=TPU_V5E, chips=4)
+    cfg = SimConfig(setup=setup, batch_cap=FLEET["batch_cap"],
+                    n_replicas=FLEET["n_replicas"],
+                    max_replicas=FLEET["n_replicas"],
+                    bucket_s=FLEET["bucket_s"])
+    cfg_obs = dataclasses.replace(cfg, obs=ObsConfig(sample_rate=1.0))
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    # (a) overhead.  Tracing adds nothing to the engine's loop: a traced
+    # run is the untraced run (its results equal, checked here) plus
+    # record_spans over the finished result.  The gate reads that
+    # derivation's time against the untraced run's, the minimum of
+    # OBS["runs"] each.  Whole traced and untraced runs are timed too, in
+    # turns, and printed as the reference's reading: the difference of two
+    # whole runs moves by more than the 5% gate between identical runs on
+    # a shared host (PERF.md, §6).
+    simulate(tr, cfg, engine="fleet")                   # warm-up
+    base, traced = [], []
+    for _ in range(OBS["runs"]):
+        base.append(timed(simulate, tr, cfg, None, "fleet"))
+        traced.append(timed(simulate, tr, cfg_obs, None, "fleet"))
+    res_base, res_obs = base[0][0], traced[0][0]
+    base_s, obs_s = min(s for _, s in base), min(s for _, s in traced)
+    derive_s = min(timed(record_spans, res_base, cfg_obs.obs)[1]
+                   for _ in range(OBS["runs"]))
+    overhead = derive_s / base_s
+    spans = res_obs.spans
+    checks["(a) counts as the reference's record"] = (
+        len(tr) == OBS_REF["n_requests"]
+        and res_obs.n_events == OBS_REF["n_events"])
+    checks["(a) spans cover every request"] = (
+        spans is not None and spans.n == len(tr))
+    checks["(a) traced run = untraced run + its spans"] = (
+        res_base.spans is None
+        and res_obs.n_events == res_base.n_events
+        and all(res_obs.req[k].tobytes() == res_base.req[k].tobytes()
+                for k in res_base.req if res_base.req[k].dtype != object)
+        and _same_steps(res_obs, res_base)
+        and _same_spans(record_spans(res_base, cfg_obs.obs), spans))
+    checks[f"(a) overhead < {OBS['overhead']:.0%}"] = \
+        overhead < OBS["overhead"]
+    print(f"[17] (a) obs_engine fleet trace: {len(tr)} requests over "
+          f"{OBS['horizon_s']:.0f} s, {res_obs.n_events} events (the "
+          f"reference's record: {OBS_REF['n_requests']} and "
+          f"{OBS_REF['n_events']}); untraced {base_s:.4f} s "
+          f"({res_obs.n_events / base_s:.0f} events a second), spans "
+          f"derived in {1e3 * derive_s:.3f} ms, minimum of {OBS['runs']} "
+          f"each: "
+          f"overhead {100 * overhead:.2f}% (gate "
+          f"{100 * OBS['overhead']:.0f}%); whole runs in turns, untraced "
+          f"{', '.join(f'{s:.4f}' for _, s in base)} s, traced at sample "
+          f"rate 1 {', '.join(f'{s:.4f}' for _, s in traced)} s (minimum "
+          f"{obs_s:.4f} s, {res_obs.n_events / obs_s:.0f} events a second, "
+          f"{100 * (obs_s / base_s - 1.0):.2f}% over untraced); "
+          f"{spans.n} spans [{smi}]")
+    # (b) the card's trajectories: spans and capped step logs as numpy's
+    t0 = time.perf_counter()
+    res_t = simulate(tr, dataclasses.replace(cfg_obs, traj_backend="torch",
+                                             device=device), engine="fleet")
+    torch_s = time.perf_counter() - t0
+    capped = {}
+    for backend in ("numpy", "torch"):
+        capped[backend] = simulate(tr, dataclasses.replace(
+            cfg, traj_backend=backend, device=device,
+            obs=ObsConfig(max_steps=OBS["max_steps"])), engine="fleet")
+    a, b = capped["numpy"], capped["torch"]
+    checks["(b) torch spans = numpy spans, every column"] = _same_spans(
+        res_t.spans, spans)
+    checks["(b) capped step logs equal"] = (
+        _same_steps(a, b) and a.steps_dropped > 0
+        and a.step_totals == res_obs.step_totals
+        and len(a.step_arrays["t_end"]) == OBS["max_steps"])
+    print(f"[17] (b) traj_backend=\"torch\" on the card, traced: {torch_s:.3f}"
+          f" s, spans equal to numpy's in all columns: "
+          f"{checks['(b) torch spans = numpy spans, every column']}; "
+          f"max_steps {OBS['max_steps']}: steps dropped numpy "
+          f"{a.steps_dropped}, torch {b.steps_dropped}, of "
+          f"{a.step_totals['n']}; step_arrays, step_totals equal: "
+          f"{checks['(b) capped step logs equal']}")
+    # (c) heap against fleet spans on the first 60 s
+    part = tr.slice(0.0, OBS["parity_s"])
+    t0 = time.perf_counter()
+    h = simulate(part, cfg_obs, engine="heap")
+    heap_s = time.perf_counter() - t0
+    f = simulate(part, cfg_obs, engine="fleet")
+    sh, sf = span_stats(h.spans), span_stats(f.spans)
+    tol50, tol95 = cfg.bucket_s + 0.35, cfg.bucket_s + 1.0
+    ok_c = all(sh[k] == sf[k] for k in ("n_spans", "n_shed", "out_tokens"))
+    gaps = {}
+    for k, tol in (("ttft_p50_s", tol50), ("ttft_p95_s", tol95),
+                   ("e2e_p50_s", tol50), ("e2e_p95_s", tol95)):
+        gaps[k] = abs(sh[k] - sf[k])
+        if np.isfinite(sh[k]) or np.isfinite(sf[k]):
+            ok_c = ok_c and gaps[k] <= tol
+    checks["(c) heap and fleet spans by the reference's rule"] = ok_c
+    print(f"[17] (c) the first {OBS['parity_s']:.0f} s, {len(part)} "
+          f"requests (heap {heap_s:.3f} s): n_spans {sh['n_spans']}/"
+          f"{sf['n_spans']}, n_shed {sh['n_shed']}/{sf['n_shed']}, "
+          f"out_tokens {sh['out_tokens']}/{sf['out_tokens']}; heap - fleet "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in gaps.items())
+          + f" (limits {tol50} s at p50, {tol95} s at p95): "
+          f"{'ok' if ok_c else 'FAIL'}")
+    # (d) the per-tenant TTFT shards merged
+    shards = span_hists(spans, n_bins=48, by=spans.tenant)
+    merged = StreamHist.merged(shards.values())
+    ttft = spans.ttft_s()
+    exact_p95 = percentile_with_inf(ttft, 95.0)
+    hist_p95 = merged.quantile(95.0)
+    fin = ttft[np.isfinite(ttft)]
+    bin_w = (fin.max() - fin.min()) / 46.0 if len(fin) else 0.0
+    checks["(d) merged p95 within a bin"] = (
+        not np.isfinite(exact_p95)
+        or abs(hist_p95 - exact_p95) <= bin_w + 1e-9)
+    qd = queue_depth_series(spans, bucket_s=cfg.bucket_s,
+                            t_end=res_obs.sim_end_s)
+    qd_hist = StreamHist.from_values(qd["depth"].astype(float), 32)
+    print(f"[17] (d) {len(shards)} TTFT shards merged: p95 {hist_p95!r} "
+          f"against {exact_p95!r} exact, bin width {bin_w!r}; queue depth "
+          f"over {len(qd['t_s'])} buckets: p50 {qd_hist.quantile(50.0)!r}, "
+          f"p95 {qd_hist.quantile(95.0)!r}, max {int(qd['depth'].max())}")
+    # (e) the Chrome trace, into the gitignored chiprun_out/
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = write_chrome_trace(res_obs, out / "obs_trace_fleet.json",
+                              max_step_events=OBS["max_step_events"],
+                              max_span_events=OBS["max_span_events"])
+    evs = json.loads(path.read_text())["traceEvents"]
+    checks["(e) chrome trace well formed"] = bool(evs) and all(
+        "ph" in e and "pid" in e for e in evs)
+    print(f"[17] (e) {path.relative_to(REPO)}: {len(evs)} events (the "
+          f"reference's record: {OBS_REF['trace_events']})")
+    # (f) the calibration audit
+    cal_checks, audit, launches = calibration_loop(smi, device)
+    checks.update(cal_checks)
+    n_ev = write_jsonl(audit.events, out / "obs_events.jsonl")
+    print(f"[17] (f) {n_ev} audit events written to "
+          f"chiprun_out/obs_events.jsonl")
+    print("[17] checks: " + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                      for k, v in checks.items()))
+    return all(checks.values()), launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on a GPU",
@@ -3226,7 +3554,16 @@ def main() -> int:
     print(f"[16] serving stack: {'ok' if ok16 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # -- 17. result -----------------------------------------------------------
+    # -- 17. the observability layer: spans, ring caps, heap against fleet,
+    # merged histograms, the Chrome trace, the calibration audit -----------
+    t0 = time.perf_counter()
+    ok17, grew = obs_phase(smi)
+    for k, n in grew.items():
+        launches[k] += n
+    print(f"[17] observability: {'ok' if ok17 else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 18. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
                "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -3264,11 +3601,11 @@ def main() -> int:
               "[10] full depth": ok10, **results,
               "[14] MoE and recurrent blocks": ok14,
               "[15] encoder-decoder and vision": ok15,
-              "[16] serving stack": ok16,
-              "[17] launches": all(
+              "[16] serving stack": ok16, "[17] observability": ok17,
+              "[18] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())
-    print(f"[17] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+    print(f"[18] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
           + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not ok:
         failed = [name for name, good in phases.items() if not good]

@@ -2,13 +2,15 @@
 
 The paper's framework assumes the benchmark database *grows*: parameters
 are estimated for benchmarked workloads, then extended to unobserved
-configurations.  On the card the deltas are the rows ``measure_arch``
-measures, one sweep at a time (the reference also feeds it the serving
-simulator's windows; ``serving/`` is not ported yet).  ``OnlineALA``
-closes the loop:
+configurations — and the serving adapter
+(``repro_torch.serving.adapter.windows_to_dataset``) produces exactly
+such growth, one steady-state window batch per simulated epoch, as the
+rows ``measure_arch`` measures on the card do one sweep at a time.
+``OnlineALA`` closes the loop:
 
-    measured rows -> Dataset delta -> ingest() ->
-        per-combination append -> drift check -> incremental refit
+    trace epoch -> windows -> Dataset delta -> ingest() ->
+        per-combination append -> drift check -> incremental refit ->
+        autoscaler picks up the fresh fit on its next control tick
 
 Incrementality, stage by stage:
 
@@ -33,8 +35,11 @@ new rows look unlike anything the SA log covered, e.g. out-of-range mass
 in the reserved boundary bins) and the residual of the Alg 4/5 predictor
 against the predicted error (growth means the model is wrong about a
 region it claims to know).  The resulting ``DriftSignal`` is returned in
-the ``RefitReport``; ``request_refit`` forces a recalibration at the next
-ingest.
+the ``RefitReport`` and consumed by
+``repro_torch.serving.autoscaler.ALAAutoscaler``, which can also force a
+recalibration mid-run via ``request_refit``.  With ``audit`` set (a
+``repro_torch.obs.CalibrationAudit``) every report is folded into the
+audit's event log.
 
 Robust ingestion: every delta passes a gate *before* drift detection or
 any fit.  Non-finite / non-positive throughput rows are always
@@ -164,12 +169,17 @@ class OnlineALA:
     """
 
     def __init__(self, cfg: Optional[OnlineConfig] = None,
-                 registry: Optional[ModelRegistry] = None, device=None):
+                 registry: Optional[ModelRegistry] = None,
+                 audit: Optional[object] = None, device=None):
         """``device`` (None: the GPU) is the new registry's; a given
         ``registry`` keeps its own, and every ALA runs on it."""
         self.cfg = cfg or OnlineConfig()
         self.registry = registry or ModelRegistry(keys=self.cfg.keys,
                                                   device=device)
+        # observability: a repro_torch.obs.CalibrationAudit; every ingest
+        # folds its RefitReport (drift / quarantine / refit events,
+        # epoch clock) into the unified audit log
+        self.audit = audit
         self.epoch = 0
         self.history: List[RefitReport] = []
         self.quarantine: List[QuarantineRecord] = []
@@ -419,6 +429,8 @@ class OnlineALA:
             wall_s=time.perf_counter() - t_all,
             n_quarantined=n_quarantined)
         self.history.append(report)
+        if self.audit is not None:
+            self.audit.ingest_report(report)
         return report
 
     # -- serving-side reads --------------------------------------------------

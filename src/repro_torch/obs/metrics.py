@@ -24,7 +24,7 @@ mass (tracked in ``n_nan`` for accounting, excluded from quantiles).
 ``quantile`` is the reference's as it stands: where exactly half the
 mass is +inf its 50th percentile can be finite while
 ``percentile_with_inf`` says inf (an open question of the reference,
-ROADMAP item 17).
+ROADMAP queue C).
 """
 from __future__ import annotations
 

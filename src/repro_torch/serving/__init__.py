@@ -16,6 +16,6 @@
 #   faults     — seed-deterministic fault plans (crash/restart cycles,
 #                straggler windows, telemetry corruption) injected into
 #                the simulator and the adapter stream
-# Observability (spans, calibration audit, export) is not ported yet
-# (ROADMAP item 17): SimConfig.obs and ALAAutoscaler(obs=, audit=) must
-# stay None.
+# Observability (spans, mergeable histograms, calibration audit,
+# Perfetto export) hooks in via SimConfig.obs / ALAAutoscaler(obs=...)
+# and lives in repro_torch.obs.

@@ -58,10 +58,10 @@ against: fixed replica count, fixed admission cap, no feedback.
 
 A copy of the reference package's ``serving/autoscaler.py`` over the
 port's ``ALA`` and ``OnlineALA``: given the same fits it takes the
-reference's action at every tick (``tests/test_torch_autoscaler.py``).
-The calibration audit (``obs``/``audit``) waits for the port of
-``obs/calibration.py`` and ``obs/tracing.py`` (ROADMAP item 17): until
-then both must be ``None`` and anything else raises.
+reference's action at every tick (``tests/test_torch_autoscaler.py``),
+and with ``obs`` or ``audit`` set it logs the reference's tick,
+recalibration and degradation events
+(``tests/test_torch_obs_calibration.py``).
 """
 from __future__ import annotations
 
@@ -74,6 +74,7 @@ import numpy as np
 from repro_torch.core.ala import ALA
 from repro_torch.core.uncertainty import confidence_from_dmin
 from repro_torch.inference.scheduler import derate_confidence
+from repro_torch.obs.calibration import CalibrationAudit
 from repro_torch.obs.metrics import RingLog
 from repro_torch.perfmodel.hardware import PROFILES, hardware_distance
 from repro_torch.serving.simulator import Action, Observation
@@ -136,14 +137,20 @@ class ALAAutoscaler:
     placement: str = "aware"          # "aware" | "roundrobin" (blind)
     # (t, hardware, derated score) per placement decision
     placements: list = dataclasses.field(default_factory=list)
-    # observability: the reference's ObsConfig and CalibrationAudit;
-    # not ported yet, so both must stay None
-    obs: Optional[object] = None
-    audit: Optional[object] = None
+    # observability (repro_torch.obs): an ObsConfig and/or a
+    # CalibrationAudit.  Passing `obs` with no audit builds one; every
+    # control tick then lands in the audit as a typed "tick" event
+    # (predicted vs measured throughput, Alg 7 predicted error, Alg 8
+    # confidence) alongside the degradation / recalibration decision
+    # events.
+    obs: Optional[object] = None          # repro_torch.obs.ObsConfig
+    audit: Optional[object] = None        # repro_torch.obs.CalibrationAudit
     # ring-cap for log/recalibrations/degradations/placements; None ->
-    # unbounded
+    # unbounded (falls back to obs.max_log_entries when obs is set)
     max_log_entries: Optional[int] = None
     _rr_idx: int = dataclasses.field(default=0, repr=False)
+    _last_pred_err: float = dataclasses.field(default=float("nan"),
+                                              repr=False)
     _resid: collections.deque = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=64), repr=False)
     _generation: int = dataclasses.field(default=0, repr=False)
@@ -153,12 +160,11 @@ class ALAAutoscaler:
     _down_streak: int = dataclasses.field(default=0, repr=False)
 
     def __post_init__(self) -> None:
-        if self.obs is not None or self.audit is not None:
-            raise NotImplementedError(
-                "ALAAutoscaler.obs/audit: the calibration audit "
-                "(obs/calibration.py, obs/tracing.py) is not ported yet "
-                "(ROADMAP item 17); pass obs=None, audit=None")
-        cap = self.max_log_entries
+        if self.audit is None and self.obs is not None \
+                and getattr(self.obs, "enabled", True):
+            self.audit = CalibrationAudit(cfg=self.obs)
+        cap = self.max_log_entries or getattr(self.obs, "max_log_entries",
+                                              None)
         if cap:
             self.log = RingLog(cap, self.log)
             self.recalibrations = RingLog(cap, self.recalibrations)
@@ -167,6 +173,8 @@ class ALAAutoscaler:
 
     def _degrade(self, t: float, kind: str) -> None:
         self.degradations.append((t, kind))
+        if self.audit is not None:
+            self.audit.event(t, "degradation", reason=kind)
 
     def _refresh_online(self) -> None:
         """Rebind to the engine's freshest fit for our combination —
@@ -200,6 +208,13 @@ class ALAAutoscaler:
         ape = (abs(obs.measured_tok_s - pred) / max(abs(pred), 1e-9)
                * 100.0 if np.isfinite(pred) else float("inf"))
         self._resid.append((ape, conf))
+        if self.audit is not None:
+            # the predict->observe->trust audit record: Alg 4 prediction
+            # vs the realized window, with Alg 7's own error estimate
+            # (captured by the last _predict_per_replica) riding along
+            self.audit.tick(obs.now, predicted=pred,
+                            measured=obs.measured_tok_s, confidence=conf,
+                            ape=ape, pred_err=self._last_pred_err)
         if self.online is None or self.combo is None:
             return
         if len(self._resid) < self.drift_window:
@@ -211,6 +226,10 @@ class ALAAutoscaler:
                 or med_conf < self.drift_conf_floor:
             self.online.request_refit(self.combo)
             self.recalibrations.append((obs.now, med_ape, med_conf))
+            if self.audit is not None:
+                self.audit.event(obs.now, "recalibration",
+                                 median_ape=med_ape,
+                                 median_confidence=med_conf)
             self._resid.clear()
 
     def _predict_per_replica(self, ii: float, oo: float
@@ -221,10 +240,12 @@ class ALAAutoscaler:
                                            np.full(len(bbs), oo), bbs),
                           np.float64)
         conf = 1.0
+        self._last_pred_err = float("nan")
         if self.ala.error_model is not None and self.ala.sa_log is not None:
             q = (np.full(len(bbs), ii), np.full(len(bbs), oo), bbs,
                  np.full(len(bbs), np.nan))
-            _, conf = self.ala.estimate(q)
+            pred_err, conf = self.ala.estimate(q)
+            self._last_pred_err = float(pred_err)   # Alg 7 predicted APE
         # a corrupted fit can emit NaN/inf/negative throughput; never let
         # argmax pick it — if nothing valid remains, report the
         # degenerate sentinel so the caller falls back to measured rates

@@ -47,8 +47,9 @@ evaluates ``decode_time_fn(setup, xp=torch)`` in float64 on
 eager torch compiles nothing.  On dense configs its durations are
 numpy's bit for bit; on MoE configs the expert-hit term's ``pow`` may
 move them by a few ulps.  Each call copies a run's (bb, ctx_sum) to the
-device and its durations back.  Step-log capping and span capture wait
-for ``obs/tracing.py`` (ROADMAP item 17).
+device and its durations back.  With ``cfg.obs`` set the step log is
+capped (``_maybe_compact``) and the span table derived, as the
+reference's are, on either backend.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import RingLog
 from repro_torch.perfmodel.simulator import decode_time_fn, prefill_time_fn
 from repro_torch.serving.faults import FaultEvent
 from repro_torch.serving.simulator import (Action, Observation,
@@ -345,7 +347,15 @@ class VectorFleetSimulator:
         self.ch_dur: List[np.ndarray] = []
         self.ch_bb: List[np.ndarray] = []
         self.ch_rep: List[Tuple[int, int]] = []
-        # lossless step aggregates
+        # observability: optional step ring cap (periodic compaction
+        # bounds peak memory at ~2x cap) + lossless step aggregates
+        obs_cfg = cfg.obs if (cfg.obs is not None
+                              and getattr(cfg.obs, "enabled", True)) \
+            else None
+        self._step_cap = getattr(obs_cfg, "max_steps", None)
+        self._comp_steps: Optional[Dict[str, np.ndarray]] = None
+        self._retained = 0
+        self._steps_dropped = 0
         self._tot_steps = 0
         self._tot_busy = 0.0
         self._tot_tokens = 0
@@ -357,7 +367,9 @@ class VectorFleetSimulator:
         # piecewise-constant active/failed-count timeline for the
         # replica-seconds and availability integrals (exact change times)
         self.state_changes: List[Tuple[float, int, int]] = []
-        fault_log: List[FaultEvent] = []
+        fault_cap = getattr(obs_cfg, "max_fault_events", None)
+        fault_log: List[FaultEvent] = RingLog(fault_cap) if fault_cap \
+            else []
         controls: List[Tuple[float, Action]] = []
 
         replicas = [self._new_replica(i, cfg.t_start)
@@ -454,7 +466,7 @@ class VectorFleetSimulator:
 
         active_s, failed_s = self._integrate_states(cfg.t_start, now)
         denom = active_s + failed_s
-        step_arrays = self._gather_steps()
+        step_arrays = self._collect_steps()
         req = {"rid": self.rid_a, "ii": self.ii_a, "oo": self.oo_a,
                "arrival_s": self.arrival_a, "tenant": self.tenant_a,
                "replica": self.replica_a, "first_token_s": self.first_a,
@@ -467,9 +479,14 @@ class VectorFleetSimulator:
             controls=controls, t_start=cfg.t_start,
             availability=(active_s / denom if denom > 0 else 1.0),
             fault_log=fault_log,
-            replica_hw={r.rid: r.hw_name for r in replicas},
-            step_totals={"n": self._tot_steps, "busy_s": self._tot_busy,
-                         "tokens_out": self._tot_tokens})
+            replica_hw={r.rid: r.hw_name for r in replicas})
+        res.steps_dropped = self._steps_dropped
+        res.faults_dropped = getattr(fault_log, "n_dropped", 0)
+        res.step_totals = {"n": self._tot_steps, "busy_s": self._tot_busy,
+                           "tokens_out": self._tot_tokens}
+        if obs_cfg is not None:
+            from repro_torch.obs.tracing import record_spans
+            res.spans = record_spans(res, obs_cfg)
         return res
 
     # -- replica lifecycle --------------------------------------------------
@@ -814,9 +831,11 @@ class VectorFleetSimulator:
         self.ps_dur.append(r.pend_dur)
         self.ps_bb.append(bbn)
         self.ps_rep.append(r.rid)
+        self._retained += 1
         self._tot_steps += 1
         self._tot_busy += r.pend_dur
         self._tot_tokens += bbn
+        self._maybe_compact()
         self.win["tokens"] += bbn
         self.win["busy"] += r.pend_dur
         self.n_events += 1
@@ -888,9 +907,11 @@ class VectorFleetSimulator:
             self.ch_dur.append(d[:S_apply])
             self.ch_bb.append(bb_step[:S_apply])
             self.ch_rep.append((r.rid, S_apply))
+            self._retained += S_apply
             self._tot_steps += S_apply
             self._tot_busy += float(d[:S_apply].sum())
             self._tot_tokens += int(bb_step[:S_apply].sum())
+            self._maybe_compact()
             self.win["tokens"] += int(bb_step[:S_apply].sum())
             self.win["busy"] += float(d[:S_apply].sum())
             self.n_events += S_apply
@@ -913,6 +934,11 @@ class VectorFleetSimulator:
             [np.full(len(c), 1, np.uint8) for c in self.ch_t]
         rp = [np.asarray(self.ps_rep, np.int32)] + \
             [np.full(cn, rid, np.int32) for rid, cn in self.ch_rep]
+        if self._comp_steps is not None:          # prior compactions
+            c = self._comp_steps
+            ts, ds = [c["t_end"]] + ts, [c["duration_s"]] + ds
+            bs, ks = [c["bb"]] + bs, [c["kind"]] + ks
+            rp = [c["replica"]] + rp
         t_end = np.concatenate(ts) if ts else np.zeros(0)
         order = np.argsort(t_end, kind="stable")
         dur = np.concatenate(ds)[order]
@@ -920,3 +946,36 @@ class VectorFleetSimulator:
         return {"t_end": t_end[order], "replica": np.concatenate(rp)[order],
                 "kind": np.concatenate(ks)[order], "bb": bb,
                 "duration_s": dur, "tokens_out": bb}
+
+    def _maybe_compact(self) -> None:
+        """Under an ``obs.max_steps`` ring cap, fold the step buffers
+        down to the most recent ``cap`` records whenever retention
+        exceeds 2x cap — peak telemetry memory stays O(cap) however
+        long the run, while ``_tot_*`` keeps the lossless aggregates."""
+        cap = self._step_cap
+        if not cap or self._retained <= 2 * cap:
+            return
+        g = self._gather_steps()
+        n = len(g["t_end"])
+        if n > cap:
+            self._steps_dropped += n - cap
+            g = {k: v[n - cap:] for k, v in g.items()}
+        self._comp_steps = g
+        self.ps_t.clear()
+        self.ps_dur.clear()
+        self.ps_bb.clear()
+        self.ps_kind.clear()
+        self.ps_rep.clear()
+        self.ch_t.clear()
+        self.ch_dur.clear()
+        self.ch_bb.clear()
+        self.ch_rep.clear()
+        self._retained = len(g["t_end"])
+
+    def _collect_steps(self) -> Dict[str, np.ndarray]:
+        g = self._gather_steps()
+        cap = self._step_cap
+        if cap and len(g["t_end"]) > cap:         # final truncation
+            self._steps_dropped += len(g["t_end"]) - cap
+            g = {k: v[len(g["t_end"]) - cap:] for k, v in g.items()}
+        return g

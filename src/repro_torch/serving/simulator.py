@@ -36,9 +36,9 @@ step log consumed by ``repro_torch.serving.adapter``.
 
 A copy of the reference package's ``serving/simulator.py``: a seeded
 trace gives the reference's records, steps and metrics bit for bit
-(``tests/test_torch_serving.py``).  Span capture (``SimConfig.obs``)
-waits for the port of ``obs/tracing.py`` (ROADMAP item 17): until then
-``obs`` must be ``None`` and anything else raises.
+(``tests/test_torch_serving.py``).  With ``SimConfig.obs`` set it
+also caps the step and fault logs and derives the reference's span
+table (``tests/test_torch_obs_tracing.py``).
 """
 from __future__ import annotations
 
@@ -49,8 +49,8 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.obs.metrics import (percentile_with_inf,  # noqa: F401
-                                     tenant_rollup)
+from repro_torch.obs.metrics import (RingLog,  # noqa: F401
+                                     percentile_with_inf, tenant_rollup)
 from repro_torch.perfmodel.simulator import (ServingSetup,
                                              decode_step_time_group,
                                              kv_capacity_tokens,
@@ -97,15 +97,10 @@ class SimConfig:
     # without CUDA), "cpu" for the tests
     device: Optional[object] = None
 
-    # observability hook (the reference's obs.tracing.ObsConfig); not
-    # ported yet, so it must stay None
+    # observability hook (repro_torch.obs.tracing.ObsConfig); None -> no
+    # span capture, unbounded telemetry buffers (typed loosely like
+    # `faults` to keep this module import-light)
     obs: Optional[object] = None
-
-    def __post_init__(self) -> None:
-        if self.obs is not None:
-            raise NotImplementedError(
-                "SimConfig.obs: span capture (obs/tracing.py) is not "
-                "ported yet (ROADMAP item 17); pass obs=None")
 
     def setup_for(self, rid: int, hardware: Optional[str] = None
                   ) -> ServingSetup:
@@ -330,8 +325,12 @@ class SimResult:
     # rid -> hardware profile name; heterogeneous fleets use this to
     # attribute steps/requests to the hardware that served them
     replica_hw: Dict[int, str] = dataclasses.field(default_factory=dict)
-    # lossless step aggregates: n / busy_s / tokens_out
-    step_totals: Optional[Dict[str, float]] = None
+    # observability (cfg.obs): span table, ring-buffer drop accounting,
+    # and lossless step aggregates that survive any sample dropping
+    spans: Optional[object] = None    # repro_torch.obs.tracing.SpanTable
+    steps_dropped: int = 0            # step records evicted by the ring cap
+    faults_dropped: int = 0           # fault events evicted by the ring cap
+    step_totals: Optional[Dict[str, float]] = None  # n/busy_s/tokens_out
 
     @property
     def hardware_names(self) -> Tuple[str, ...]:
@@ -494,9 +493,16 @@ class FleetSimulator:
         replicas = [self._new_replica(i)
                     for i in range(max(cfg.n_replicas, 1))]
         records: Dict[int, RequestRecord] = {}
-        steps: List[StepRecord] = []
+        obs_cfg = cfg.obs if (cfg.obs is not None
+                              and getattr(cfg.obs, "enabled", True)) \
+            else None
+        step_cap = getattr(obs_cfg, "max_steps", None)
+        fault_cap = getattr(obs_cfg, "max_fault_events", None)
+        steps: List[StepRecord] = RingLog(step_cap) if step_cap else []
         controls: List[Tuple[float, Action]] = []
-        fault_log: List[FaultEvent] = []
+        fault_log: List[FaultEvent] = RingLog(fault_cap) if fault_cap \
+            else []
+        # lossless step aggregates (survive ring-cap drops)
         tot_steps, tot_busy, tot_tokens = 0, 0.0, 0
         heap: List[Tuple[float, int, int, object]] = []
         tick = 0
@@ -775,9 +781,14 @@ class FleetSimulator:
                                       if denom > 0 else 1.0),
                         fault_log=fault_log,
                         replica_hw={r.rid: r.setup.hw.name
-                                    for r in replicas},
-                        step_totals={"n": tot_steps, "busy_s": tot_busy,
-                                     "tokens_out": tot_tokens})
+                                    for r in replicas})
+        res.steps_dropped = getattr(steps, "n_dropped", 0)
+        res.faults_dropped = getattr(fault_log, "n_dropped", 0)
+        res.step_totals = {"n": tot_steps, "busy_s": tot_busy,
+                           "tokens_out": tot_tokens}
+        if obs_cfg is not None:
+            from repro_torch.obs.tracing import record_spans
+            res.spans = record_spans(res, obs_cfg)
         return res
 
 

@@ -205,7 +205,9 @@ def online_from_reference(eng, device=None) -> OnlineALA:
     ``device`` (None: the GPU): its config, registry, epoch, quarantine and
     forced refits, and each combination's rows, eval membership, RNG,
     ALA, fitted-row count and generation.  The next ingest of the same
-    delta then sees the same state on both sides."""
+    delta then sees the same state on both sides.  The reference's
+    ``audit`` is not carried: an audit is a log, not fitted state (set
+    ``out.audit`` to log the port's ingests)."""
     cfg = OnlineConfig(**{f.name: copy.deepcopy(getattr(eng.cfg, f.name))
                           for f in dataclasses.fields(OnlineConfig)
                           if f.name != "sa"})

@@ -19,6 +19,8 @@ them.  The port's loop runs its own ``OnlineALA`` on the CPU from the
 same seed grid: the same actions, the same deltas bit for bit, and the
 same refit decisions, drift flags and generations as the reference's
 loop."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,7 @@ from repro.core.dataset import Dataset as JaxDataset
 from repro.core.online import OnlineALA as JaxOnlineALA
 from repro.core.online import OnlineConfig as JaxOnlineConfig
 from repro.inference import scheduler as jsch
+from repro.obs import ObsConfig as JaxObsConfig
 from repro.perfmodel import hardware as jax_hw
 from repro.perfmodel import simulator as jax_perf
 from repro.serving import adapter as jad
@@ -42,6 +45,7 @@ from repro_torch.core.dataset import Dataset
 from repro_torch.core.online import OnlineALA, OnlineConfig
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.inference import scheduler as tsch
+from repro_torch.obs import CalibrationAudit, ObsConfig
 from repro_torch.perfmodel import hardware
 from repro_torch.perfmodel import simulator as perf
 from repro_torch.serving import adapter as tad
@@ -219,10 +223,27 @@ def test_autoscaler_takes_the_references_actions(engine, name, fitted):
             assert got[k].tobytes() == want[k].tobytes(), k
 
 
-def test_observability_hooks_are_refused_not_ignored(fitted):
-    for kw in (dict(obs=object()), dict(audit=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-            tas.ALAAutoscaler(ala=fitted[0], **kw)
+def test_observability_hooks_are_accepted_as_the_reference(fitted):
+    """``obs`` with no ``audit`` builds one, a given audit is shared, a
+    disabled ``obs`` builds none, and ``obs.max_log_entries`` caps the
+    decision logs, on both sides alike; ``StaticPolicy`` takes neither."""
+    ala, jala = fitted
+    for obs, jobs in ((ObsConfig(max_log_entries=3),
+                       JaxObsConfig(max_log_entries=3)),
+                      (ObsConfig(enabled=False),
+                       JaxObsConfig(enabled=False))):
+        pol = tas.ALAAutoscaler(ala=ala, obs=obs)
+        jpol = jas.ALAAutoscaler(ala=jala, obs=jobs)
+        assert type(pol.audit).__name__ == type(jpol.audit).__name__
+        assert type(pol.log).__name__ == type(jpol.log).__name__
+        assert getattr(pol.log, "cap", None) == getattr(jpol.log, "cap",
+                                                        None)
+    assert isinstance(tas.ALAAutoscaler(ala=ala, obs=ObsConfig()).audit,
+                      CalibrationAudit)
+    shared = CalibrationAudit()
+    assert tas.ALAAutoscaler(ala=ala, audit=shared,
+                             obs=ObsConfig()).audit is shared
+    assert math.isnan(tas.ALAAutoscaler(ala=ala)._last_pred_err)
     pol = tas.StaticPolicy(n_replicas=3, batch_cap=16)
     act = pol.control(None)
     assert (act.n_replicas, act.batch_cap, act.hardware) == (3, 16, None)

@@ -20,7 +20,10 @@ on the card to the host loop's over K4's plain histograms, and a small ALA
 run's launches to its fits; the fleet engine's decode trajectories in
 float64 on the card (``traj_backend="torch"``) against numpy's, bit for
 bit on a dense config, within 1e-9 s on a MoE one, and refused without
-a card.  Every test that needs a card
+a card; a traced, step-capped fleet run's spans and step log on the
+card's trajectories equal to numpy's, and an audited ``OnlineALA`` on
+the card whose refits each grow a fit in one ``gbt_grow`` launch.  Every
+test that needs a card
 skips without one; this file imports no JAX, so it runs where only torch
 is installed:
 
@@ -1165,3 +1168,91 @@ def test_fleet_torch_trajectories_without_a_card_raise(monkeypatch):
                     traj_backend="torch")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VectorFleetSimulator(_serving_trace(10.0), cfg)
+
+
+def test_traced_fleet_on_the_card_gives_numpys_spans(cuda):
+    """The observability hook on the card's trajectories: a traced,
+    step-capped fleet run with crashes and stragglers, its span table
+    equal to the numpy run's in every column and its capped step log,
+    dropped counts and lossless totals equal too."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.obs import ObsConfig
+    from repro_torch.obs.tracing import SpanTable
+    from repro_torch.perfmodel.hardware import TPU_V5E
+    from repro_torch.perfmodel.simulator import ServingSetup
+    from repro_torch.serving.faults import FaultConfig, injector
+    from repro_torch.serving.simulator import SimConfig, simulate
+    tr = _serving_trace(120.0)
+    setup = ServingSetup(get_config("llama3.1-8b"), TPU_V5E, chips=4)
+
+    def run(backend):
+        return simulate(tr, SimConfig(
+            setup=setup, n_replicas=3, bucket_s=0.25, traj_backend=backend,
+            faults=injector(FaultConfig(seed=2, horizon_s=120.0,
+                                        n_replicas=3, mttf_s=40.0,
+                                        straggler_rate_hz=0.05)),
+            max_retries=1, obs=ObsConfig(max_steps=2000,
+                                         max_fault_events=4)),
+            engine="fleet")
+
+    want, got = run("numpy"), run("torch")
+    assert got.spans.n == want.spans.n == len(tr)
+    for f in dataclasses.fields(SpanTable):
+        a, b = getattr(got.spans, f.name), getattr(want.spans, f.name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, f.name
+            assert (a.tolist() == b.tolist() if b.dtype == object
+                    else a.tobytes() == b.tobytes()), f.name
+        else:
+            assert a == b, f.name
+    assert got.steps_dropped == want.steps_dropped > 0
+    assert got.faults_dropped == want.faults_dropped > 0
+    assert got.step_totals == want.step_totals
+    for k in want.step_arrays:
+        assert len(got.step_arrays[k]) == 2000
+        assert got.step_arrays[k].tobytes() == want.step_arrays[k].tobytes()
+
+
+def test_audited_online_refits_grow_each_fit_in_one_launch(cuda):
+    """``OnlineALA(audit=...)`` on the card: every ingest lands in the
+    audit as a refit event, and every fit of the refits is one
+    ``gbt_grow`` launch, with no launch a level and no host loop."""
+    from repro_torch.core import gbt
+    from repro_torch.core.annealing import SAConfig
+    from repro_torch.core.dataset import Dataset
+    from repro_torch.core.online import OnlineALA, OnlineConfig
+    from repro_torch.obs import CalibrationAudit
+
+    def rows(n, seed, scale=1.0):
+        r = np.random.default_rng(seed)
+        ii, oo = r.choice([128, 256, 512, 1024], n), r.choice([64, 256], n)
+        bb = r.choice([1, 2, 4, 8, 16, 32, 64], n)
+        thpt = (scale * 5000 * (1 - np.exp(-0.05 * bb)) * (512 / ii) ** 0.3
+                * r.lognormal(0, 0.03, n))
+        return Dataset.from_rows([
+            dict(model="m-a", acc="tpu-v5e", acc_count=4, back="sim-trace",
+                 prec="bf16", mode="serve", ii=int(a), oo=int(b), bb=int(c),
+                 thpt=float(t)) for a, b, c, t in zip(ii, oo, bb, thpt)])
+
+    sa = SAConfig(n_iters=4, n_chains=2, seed=0,
+                  gbt_kw=dict(n_estimators=15, learning_rate=0.2,
+                              max_depth=3))
+    audit = CalibrationAudit()
+    eng = OnlineALA(OnlineConfig(sa=sa, warm_iters=3, gbt_kw=dict(sa.gbt_kw)),
+                    audit=audit)
+    grows, fits = gh_ops.grow_fit.launches, gbt.grow_forests.fits
+    hists, splits = (gh_ops.build_node_histograms.launches,
+                     gh_ops.split_level.launches)
+    levels = gbt._joint_histograms.levels
+    eng.ingest(rows(50, 1), n_estimators=10)
+    eng.ingest(rows(15, 3, scale=0.25), n_estimators=10)
+    assert audit.counts["refit"] == 2
+    assert [e.data["n_refit"] for e in audit.events if e.kind == "refit"] \
+        == [1, 1]
+    assert gh_ops.grow_fit.launches - grows == \
+        gbt.grow_forests.fits - fits > 0
+    assert gh_ops.build_node_histograms.launches == hists
+    assert gh_ops.split_level.launches == splits
+    assert gbt._joint_histograms.levels == levels

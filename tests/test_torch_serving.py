@@ -23,6 +23,7 @@ import torch
 from _sim_invariants import assert_per_tenant_consistent, \
     assert_sim_invariants
 from repro.configs import get_config as jax_get_config
+from repro.obs import ObsConfig as JaxObsConfig
 from repro.perfmodel import hardware as jax_hw
 from repro.perfmodel.simulator import ServingSetup as JaxSetup
 from repro.serving import adapter as jad
@@ -32,6 +33,7 @@ from repro.serving import traces as jt
 from repro.serving.autoscaler import StaticPolicy as JaxStatic
 
 from repro_torch.configs import get_config
+from repro_torch.obs import ObsConfig
 from repro_torch.perfmodel import hardware
 from repro_torch.perfmodel.simulator import ServingSetup
 from repro_torch.serving import adapter as tad
@@ -270,9 +272,34 @@ def test_torch_backend_needs_a_card_unless_told_cpu(traces, monkeypatch):
         tsim.simulate(tr, tsim.SimConfig(setup=_setups()[0]), engine="x")
 
 
-def test_obs_hook_is_refused_not_ignored():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        tsim.SimConfig(setup=_setups()[0], obs=object())
+@pytest.mark.parametrize("engine", ["heap", "fleet"])
+def test_obs_hook_is_accepted_and_traces_as_the_reference(engine, traces):
+    """``SimConfig(obs=...)`` is taken as the reference takes it: a span
+    for each sampled request, the step log held to ``max_steps`` with
+    the drops counted, and no spans when ``obs`` is disabled; spans,
+    steps and drops equal the reference's."""
+    tr, jtr = traces
+    setup, jsetup = _setups()
+    for kw in (dict(sample_rate=0.5, max_steps=300), dict(enabled=False)):
+        res = tsim.simulate(tr, tsim.SimConfig(
+            setup=setup, n_replicas=2, bucket_s=0.25, obs=ObsConfig(**kw)),
+            engine=engine)
+        jres = jsim.simulate(jtr, jsim.SimConfig(
+            setup=jsetup, n_replicas=2, bucket_s=0.25,
+            obs=JaxObsConfig(**kw)), engine=engine)
+        assert res.steps_dropped == jres.steps_dropped
+        assert res.faults_dropped == jres.faults_dropped == 0
+        _same_obj(res.step_totals, jres.step_totals)
+        if kw.get("enabled", True):
+            assert 0 < res.spans.n < res.spans.n_source == len(tr)
+            assert res.steps_dropped == res.step_totals["n"] - 300 > 0
+            assert res.spans.tenant.tolist() == jres.spans.tenant.tolist()
+            for k in ("rid", "replica", "first_token_s", "done_s", "shed"):
+                assert getattr(res.spans, k).tobytes() == \
+                    getattr(jres.spans, k).tobytes(), k
+        else:
+            assert res.spans is None and jres.spans is None
+            assert res.steps_dropped == 0
 
 
 def _same_windows(got, want):
