@@ -6,8 +6,10 @@ llama4-maverick, xlstm-125m, jamba), whisper-medium's encoder-decoder
 path and internvl2-1b's vision stub, the ALA pipeline (paper Alg 1-8)
 on the paper's data and on the rows the card measures, the serving
 stack with ALA in the loop (the roofline simulator, the fleet and heap
-engines, the autoscaler and the online refit) and its observability
-layer (spans, the calibration audit, the Chrome trace).
+engines, the autoscaler and the online refit), its observability
+layer (spans, the calibration audit, the Chrome trace), and training
+(qwen3-0.6b whole through ``Trainer.run``, with the backward kernels of
+RMSNorm and flash attention).
 
     python3 chip_smoke.py
 
@@ -200,7 +202,26 @@ Phases, each printing its own lines:
     monotone reliability curve, each refit's fits one ``gbt_grow``
     launch, its summary beside the reference's CPU record and its events
     written to ``chiprun_out/``;
-18. the kernel table as one JSON line (``main_path`` false for
+18. training: (a) K1's backward (plain and fused) at qwen3-0.6b's
+    hidden norms (16,384 x 1,024) and q/k norms (262,144 x 128), and
+    K2's backward (dQ, dK, dV) at its training shape (B 4, S 4,096, 16/8
+    heads, causal), whisper's encoder (S 1,500, full) and cross
+    attention (Sq 512, Sk 1,500), fp32 and bf16, against their plain
+    versions, bit-equal over two runs, the forward's LSE against the
+    plain one; both timed beside their bounds, plain versions and the
+    library's backward (``F.rms_norm``'s and SDPA's, by autograd); (b)
+    one ``Trainer`` step of qwen3-0.6b at 2 layers, full width, S 512,
+    card against CPU from the same parameters (fp32: loss 1e-4, each
+    gradient and updated parameter 1e-3 and 1e-4 of its norm; bf16: the
+    loss 2e-2); (c) qwen3-0.6b whole (28 layers) through ``Trainer.run``
+    at S 4,096, B 4, 10 steps: losses and grad norms finite, the last
+    below the first, exact launches a step (28 K2 forwards and
+    backwards, 113 K1 norms and their backwards), the final checkpoint's
+    seconds, step ms, tokens/s, TFLOP/s, peak memory, and one traced
+    step's device ms by kind (GEMM, K2 forward and backward, K1 forward
+    and backward, the cross entropy and the optimizer by their profiler
+    ranges, other); (d) the reference's restart drill at (b)'s cut;
+19. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
 
@@ -403,6 +424,19 @@ class Checks:
         self.err[key] = max(self.err.get(key, 0.0), _err(got, want))
         if not _close(got, want, dtype):
             self.failed.append(f"{case} {key} err {_err(got, want):.3g}")
+
+    def add_norm(self, case, got, want, dtype):
+        """A reduction's result, held by the norm of its error over the
+        norm of ``want`` (an element that cancels to near zero carries
+        the summation order's error)."""
+        torch.cuda.synchronize()
+        self.n += 1
+        key = str(dtype).replace("torch.", "") + " (norm)"
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm().clamp_min(1e-30)).item()
+        self.err[key] = max(self.err.get(key, 0.0), rel)
+        if rel > TOL[dtype]:
+            self.failed.append(f"{case} {key} err {rel:.3g}")
 
     def report(self, tag="[3]"):
         errs = ", ".join(f"{k} max err {v:.3g}" for k, v in self.err.items())
@@ -3114,6 +3148,514 @@ def obs_phase(smi, device=None):
     return all(checks.values()), launches
 
 
+# phase [18], training: qwen3-0.6b (examples/train_demo.py's default arch)
+# whole, at the reference's train_4k sequence (configs/shapes.py), B 4,
+# through Trainer.run with the reference trainer tests' AdamW settings;
+# (b) and (d) at 2 layers, S 512, B 1
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 4, 10
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+TRAIN_CUT = dict(n_layers=2, seq=512, batch=1)
+# card against CPU in fp32: the loss (relative), each gradient and each
+# updated parameter (the norm of the difference over the CPU's norm; one
+# Adam step moves an element by about lr whatever its gradient, so an
+# element whose gradient rounds to the other sign moves 2 lr apart, which
+# only a norm tolerates); bf16's loss
+TRAIN_TOL = dict(loss=1e-4, grad=1e-3, param=1e-4, bf16_loss=2e-2,
+                 rtol=2e-4, atol=2e-5)
+# K1's backward at the hidden norms' rows (B 4 x S 4,096 tokens, d 1,024)
+# and qwen3's q/k norms' (16 heads of d 128 a token)
+K1_BWD_SHAPES = ((16384, 1024), (16384 * 16, 128))
+# K2's backward (B, Sq, Sk, H, KV, Dh, causal): qwen3's training shape,
+# whisper's encoder (S 1,500, full) and its cross attention (Sq 512
+# against Sk 1,500)
+K2_BWD_CASES = ((4, 4096, 4096, 16, 8, 128, True),
+                (2, 1500, 1500, 16, 16, 64, False),
+                (2, 512, 1500, 16, 16, 64, False))
+# kernel kinds of a traced training step, by name (K1's backward first:
+# its names hold "rmsnorm" too); the cross entropy and the optimizer are
+# read from their profiler ranges
+TRAIN_KINDS = (("K2 backward", ("fa_bwd",)), ("K2 forward", ("flash_fwd",)),
+               ("K1 backward", ("rmsnorm_bwd",)), ("K1 forward", ("rmsnorm",)),
+               ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")))
+TRAIN_RANGES = {"cross entropy": ("cross_entropy", "cross_entropy_bwd"),
+                "optimizer": ("adamw_update",)}
+
+
+def k1_bwd_checks(gen):
+    """K1's backward, plain and fused, against its plain version on the
+    card at K1_BWD_SHAPES in fp32 and bf16 (scale fp32, as the model holds
+    it; one bf16 scale), and bit-equal over two runs."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
+                                                 rmsnorm_bwd_ref)
+    checks, same = Checks("rmsnorm_bwd"), []
+    cases = [(rows, d, dt, fused, FP32) for rows, d in K1_BWD_SHAPES
+             for dt in (FP32, BF16) for fused in (False, True)]
+    cases.append((*K1_BWD_SHAPES[0], BF16, True, BF16))
+    for rows, d, dt, fused, sdt in cases:
+        x, dy = _randn(gen, (rows, d), dt), _randn(gen, (rows, d), dt)
+        ds = _randn(gen, (rows, d), dt) if fused else None
+        scale = (1 + 0.1 * _randn(gen, (d,), FP32)).to(sdt)
+        got = rms_ops.rmsnorm_bwd(x, scale, dy, ds)
+        want = (add_rmsnorm_bwd_ref(x, scale, dy, ds) if fused
+                else rmsnorm_bwd_ref(x, scale, dy))
+        case = (rows, d, "fused" if fused else "plain",
+                str(sdt).replace("torch.", "scale "))
+        checks.add(case + ("dx",), got[0], want[0], dt)
+        checks.add_norm(case + ("dscale",), got[1], want[1], dt)
+        again = rms_ops.rmsnorm_bwd(x, scale, dy, ds)
+        same.append(all(torch.equal(_bits(a), _bits(b))
+                        for a, b in zip(got, again)))
+        del x, dy, ds, got, want, again
+    return checks, same
+
+
+def _plain_batch(b, h, sq, sk):
+    """How many of ``b`` sequences the plain attention takes at once:
+    all, unless their (Sq, Sk) fp32 scores pass 4.5 GB (it keeps about
+    five such tensors)."""
+    return b if b * h * sq * sk * 4 <= 4.5e9 else 1
+
+
+def k2_bwd_checks(gen):
+    """K2's backward (dQ, dK, dV) against its plain version on the card at
+    K2_BWD_CASES, fp32 and bf16, from the forward's own output and LSE;
+    the LSE against the plain version's; two runs bit-equal."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    checks, lse_checks, same = (Checks("flash_attention_bwd"),
+                                Checks("flash_attention lse"), [])
+    for b, sq, sk, h, kv, dh, causal in K2_BWD_CASES:
+        pb = _plain_batch(b, h, sq, sk)
+        for dt in (FP32, BF16):
+            q = _randn(gen, (b, sq, h, dh), dt)
+            k, v = (_randn(gen, (b, sk, kv, dh), dt) for _ in range(2))
+            dout = _randn(gen, (b, sq, h, dh), dt)
+            out, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal)
+            case = (b, sq, sk, h, kv, dh, "causal" if causal else "full")
+
+            def hm(t):
+                return t[:pb].transpose(1, 2)
+
+            _, want_lse = attention_ref(hm(q), hm(k), hm(v), causal=causal,
+                                        return_lse=True)
+            lse_checks.add(case, lse[:pb], want_lse, dt)
+            got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             causal=causal)
+            want = attention_bwd_ref(hm(q), hm(k), hm(v), hm(out), hm(dout),
+                                     causal=causal)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                checks.add(case + (name,), g[:pb], w.transpose(1, 2), dt)
+            del want
+            again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                               causal=causal)
+            same.append(all(torch.equal(_bits(a), _bits(b))
+                            for a, b in zip(got, again)))
+            del q, k, v, dout, out, lse, got, again
+            torch.cuda.empty_cache()
+    return checks, lse_checks, same
+
+
+def k1_bwd_timing(gen, rows, d, fused):
+    """K1's backward (plain or fused) over ``rows`` x ``d`` bf16 rows, scale
+    fp32, timed beside its plain version and ``F.rms_norm``'s backward by
+    autograd (the library call); bound by the bytes it must move."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
+                                                 rmsnorm_bwd_ref)
+    nbytes = (4 if fused else 3) * rows * d * 2 + 2 * d * 4
+    scale = torch.ones(d, device="cuda")
+    sets = [(_randn(gen, (rows, d), BF16), scale,
+             _randn(gen, (rows, d), BF16),
+             _randn(gen, (rows, d), BF16) if fused else None)
+            for _ in range(_n_sets(nbytes))]
+
+    def plain(x, s, dy, ds):
+        return (add_rmsnorm_bwd_ref(x, s, dy, ds) if fused
+                else rmsnorm_bwd_ref(x, s, dy))
+
+    lib_sets = []
+    for x, _, dy, _ in sets:
+        xr = x.detach().requires_grad_()
+        w = scale.to(BF16).requires_grad_()
+        y = torch.nn.functional.rms_norm(xr, (d,), w, 1e-5)
+        lib_sets.append((y, xr, w, dy))
+
+    def lib(y, xr, w, dy):
+        return torch.autograd.grad(y, (xr, w), dy, retain_graph=True)
+
+    x, s, dy, ds = sets[0]
+    return dict(
+        name="rmsnorm_bwd",
+        shape=f"{rows}x{d} bf16 {'fused' if fused else 'plain'}",
+        check=(rms_ops.rmsnorm_bwd(x, s, dy, ds)[0], plain(x, s, dy, ds)[0]),
+        ms=time_ms(rms_ops.rmsnorm_bwd, sets),
+        plain_ms=time_ms(plain, sets),
+        library_ms=time_ms(lib, lib_sets),
+        # two kernels a call (the rows, then the fixed-order sum of the
+        # dscale partials), read by name: a count of calls over a trace
+        # that lost records reads low (0.0115 ms against a 0.0401 ms
+        # bound in one whole run)
+        device_ms=2 * device_ms(rms_ops.rmsnorm_bwd, sets, "rmsnorm_bwd"),
+        library_device_ms=device_ms(lib, lib_sets),
+        library_call="F.rms_norm's backward (autograd)",
+        bound=_bound(nbytes, 10 * rows * d, PEAK_FP32))
+
+
+def k2_bwd_timing(gen, b, sq, sk, h, kv, dh, causal):
+    """K2's backward at ``b`` sequences of ``sq`` query rows against ``sk``
+    keys (bf16), timed beside its plain version and SDPA's backward by
+    autograd (the library call).  The bound counts q, k, v, o, dO and lse
+    read once, dq, dk, dv written once, and five products of the kept
+    (row, key) pairs (QK^T again, dO V^T, P^T dO, dS K, dS^T Q) on the
+    bf16 tensor cores."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    nbytes = 2 * (4 * b * sq * h * dh + 4 * b * sk * kv * dh) + 4 * b * h * sq
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
+    sets = []
+    for _ in range(_n_sets(nbytes)):
+        q = _randn(gen, (b, sq, h, dh), BF16)
+        k, v = (_randn(gen, (b, sk, kv, dh), BF16) for _ in range(2))
+        out, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal)
+        sets.append((q, k, v, out, lse, _randn(gen, (b, sq, h, dh), BF16)))
+
+    def kernel(q, k, v, out, lse, dout):
+        return fa_ops.flash_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=causal)
+
+    def plain(q, k, v, out, lse, dout):
+        return attention_bwd_ref(*(t.transpose(1, 2)
+                                   for t in (q, k, v, out, dout)),
+                                 causal=causal)
+
+    lib_sets = []
+    for q, k, v, _, _, dout in sets:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_sets.append((o, qt, kt, vt, dout.transpose(1, 2)))
+
+    def lib(o, qt, kt, vt, dot):
+        return torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True)
+
+    args = sets[0]
+    rows = f"S{sq}" if sq == sk else f"Sq{sq} Sk{sk}"
+    return dict(
+        name="flash_attention_bwd",
+        shape=(f"B{b} {rows} H{h} KV{kv} Dh{dh} bf16"
+               + ("" if causal else " full")),
+        check=(kernel(*args)[0], plain(*args)[0].transpose(1, 2)),
+        ms=time_ms(kernel, sets, iters=8),
+        plain_ms=time_ms(plain, sets, iters=2),
+        library_ms=time_ms(lib, lib_sets, iters=8),
+        device_ms=device_ms(kernel, sets, calls=4),
+        library_device_ms=device_ms(lib, lib_sets, calls=4),
+        library_call="SDPA's backward (autograd)",
+        bound=_bound(nbytes, 10 * b * h * dh * pairs, PEAK_BF16))
+
+
+def _rel_norm(got, want) -> float:
+    return ((got.float().cpu() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def train_card_vs_cpu():
+    """One ``Trainer`` step of qwen3-0.6b cut to TRAIN_CUT on the card
+    against the CPU from the same parameters and batch: fp32 (loss, each
+    gradient and each updated parameter by TRAIN_TOL) and bf16 (the loss;
+    the gradients' gap printed).  Returns (ok, lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models.transformer import Model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    shape = ShapeSpec("train_cut", TRAIN_CUT["seq"], TRAIN_CUT["batch"],
+                      "train")
+    ok, lines = True, []
+    for dt in (FP32, BF16):
+        cfg = get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_CUT["n_layers"],
+                                            compute_dtype=dt)
+        tc = TrainConfig(total_steps=1, opt=AdamWConfig(**TRAIN_OPT))
+        cpu = Trainer(Model(cfg), shape, None, tc, device="cpu")
+        card = Trainer(Model(cfg), shape, None, tc)
+        params, opt = cpu.init_state(0)
+        card.model.load({k: t.detach().to("cuda") for k, t in params.items()},
+                        train=True)
+        cparams = dict(card.model.named_parameters())
+        t0 = time.perf_counter()
+        _, _, loss_cpu, m_cpu = cpu.step(params, opt, cpu.batch(0))
+        cpu_s = time.perf_counter() - t0
+        _, _, loss_card, m_card = card.step(cparams, adamw_init(cparams),
+                                            card.batch(0))
+        loss_cpu, loss_card = float(loss_cpu), float(loss_card)
+        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        grad_err = max(_rel_norm(cparams[k].grad, p.grad)
+                       for k, p in params.items())
+        param_err = max(_rel_norm(cparams[k].detach(), p.detach())
+                        for k, p in params.items())
+        param_max = max((cparams[k].detach().cpu() - p.detach()).abs().max()
+                        .item() for k, p in params.items())
+        if dt == FP32:
+            good = (loss_err <= TRAIN_TOL["loss"]
+                    and grad_err <= TRAIN_TOL["grad"]
+                    and param_err <= TRAIN_TOL["param"])
+            want = (f"loss {TRAIN_TOL['loss']:g}, gradients "
+                    f"{TRAIN_TOL['grad']:g}, parameters "
+                    f"{TRAIN_TOL['param']:g}")
+        else:
+            good = loss_err <= TRAIN_TOL["bf16_loss"]
+            want = f"loss {TRAIN_TOL['bf16_loss']:g}; the rest printed"
+        ok = ok and good
+        lines.append(
+            f"[18] (b) {TRAIN_ARCH} at {TRAIN_CUT['n_layers']} layers, "
+            f"{str(dt).replace('torch.', '')}, S {shape.seq_len} B "
+            f"{shape.global_batch}, one Trainer step card against CPU: loss "
+            f"{loss_card!r} / {loss_cpu!r} (rel {loss_err:.3g}), grad_norm "
+            f"{float(m_card['grad_norm']):.6g} / "
+            f"{float(m_cpu['grad_norm']):.6g}, worst gradient "
+            f"{grad_err:.3g} of its norm, worst updated parameter "
+            f"{param_err:.3g} of its norm (largest element gap "
+            f"{param_max:.3g}); CPU step {cpu_s:.1f} s (tolerance {want}): "
+            f"{'ok' if good else 'FAIL'}")
+        del cpu, card, params, cparams, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ok, lines
+
+
+def train_restart_drill():
+    """The reference's restart drill (tests/test_system.py) on the card at
+    TRAIN_CUT: 6 steps uninterrupted against 3 steps, a fresh Trainer and
+    3 more from the checkpoint.  Returns (ok, line)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models.transformer import Model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=TRAIN_CUT["n_layers"])
+    shape = ShapeSpec("train_cut", TRAIN_CUT["seq"], TRAIN_CUT["batch"],
+                      "train")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        def make(name, total):
+            return Trainer(Model(cfg), shape, None, TrainConfig(
+                total_steps=total, ckpt_every=3 if name == "resume" else 6,
+                ckpt_dir=f"{tmp}/{name}", log_every=10 ** 9, opt=opt))
+
+        full = {k: t.detach().cpu() for k, t in
+                make("full", 6).run(seed=3)[0].items()}
+        make("resume", 3).run(seed=3)
+        again = make("resume", 6)
+        res = {k: t.detach().cpu() for k, t in again.run(seed=3)[0].items()}
+    ok = (list(full) == list(res)
+          and [h["step"] for h in again.history] == [3, 4, 5]
+          and all(torch.allclose(full[k], res[k], rtol=TRAIN_TOL["rtol"],
+                                 atol=TRAIN_TOL["atol"]) for k in full))
+    gap = max((full[k] - res[k]).abs().max().item() for k in full)
+    return ok, (f"[18] (d) restart drill at {TRAIN_CUT['n_layers']} layers: "
+                f"6 steps against 3 + a fresh Trainer's 3 from the "
+                f"checkpoint, largest parameter gap {gap:.3g} (rtol "
+                f"{TRAIN_TOL['rtol']:g}, atol {TRAIN_TOL['atol']:g}), "
+                f"{time.perf_counter() - t0:.1f} s: "
+                f"{'ok' if ok else 'FAIL'}")
+
+
+def _train_trace(step):
+    """One traced call of ``step`` (after one untraced): wall ms, device
+    busy ms, device ms by TRAIN_KINDS, by TRAIN_RANGES (the profiler
+    ranges' device time, their kernels taken out of the other kinds) and
+    the rest ("other elementwise"), and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    for _ in range(3):   # again if the tracer saw no device work
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        # the ranges also mark their spans on the device's timeline; those
+        # spans are no device work
+        ranges = {n for names in TRAIN_RANGES.values() for n in names}
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.name not in ranges]
+        if kernels:
+            break
+    kinds = {k: 0.0 for k, _ in TRAIN_KINDS}
+    rest, by_name = 0.0, {}
+    for e in kernels:
+        ms = e.device_time_total / 1e3
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + ms)
+        kind = next((k for k, keys in TRAIN_KINDS
+                     if any(key in e.name.lower() for key in keys)), None)
+        if kind is None:
+            rest += ms
+        else:
+            kinds[kind] += ms
+    for kind, names in TRAIN_RANGES.items():
+        kinds[kind] = sum(e.device_time_total for e in events
+                          if e.device_type == DeviceType.CPU
+                          and e.name in names) / 1e3
+        rest -= kinds[kind]
+    kinds["other elementwise"] = rest
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(((k, n, t) for k, (n, t) in by_name.items()),
+                 key=lambda r: -r[2])
+    return wall, busy, kinds, top
+
+
+def train_whole(smi):
+    """qwen3-0.6b whole (28 layers, full width) through ``Trainer.run`` at
+    S TRAIN_SEQ, B TRAIN_BATCH, TRAIN_STEPS steps, launches counted
+    exactly; then one step traced.  Returns (ok, launches, lines)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    counters = (rms_ops.rmsnorm, rms_ops.add_rmsnorm, rms_ops.rmsnorm_bwd,
+                fa_ops.flash_attention, fa_ops.flash_attention_bwd)
+    plain, fused, n_attn = _step_counts(cfg, prefill=True)
+    per_step = {"rmsnorm": plain, "add_rmsnorm": fused,
+                "rmsnorm_bwd": plain + fused, "flash_attention": n_attn,
+                "flash_attention_bwd": n_attn}
+    saves = []
+    orig_save = train_loop.ckpt.save_checkpoint
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig_save(*a, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(Model(cfg), shape, None, TrainConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=10 ** 9, ckpt_dir=tmp,
+            log_every=10 ** 9, opt=AdamWConfig(**TRAIN_OPT)))
+        for fn in counters:
+            fn.launches = 0
+        train_loop.ckpt.save_checkpoint = timed_save
+        t0 = time.perf_counter()
+        try:
+            params, opt = trainer.run(seed=0)
+        finally:
+            train_loop.ckpt.save_checkpoint = orig_save
+        run_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = trainer.history
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    counts_ok = launches == want
+    finite = all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                 for h in hist)
+    falls = hist[-1]["loss"] < hist[0]["loss"]
+    ok = counts_ok and finite and falls and len(hist) == TRAIN_STEPS
+    n_params = sum(p.numel() for p in params.values())
+    step_s = float(np.median([h["sec"] for h in hist[1:]]))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn_flops = (12 * cfg.d_head * pairs * TRAIN_BATCH * cfg.n_heads
+                  * n_attn)
+    flops = 6 * n_params * tokens + attn_flops
+    lines.append(
+        f"[18] (c) {TRAIN_ARCH} whole ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters) through "
+        f"Trainer.run, S {TRAIN_SEQ} B {TRAIN_BATCH}, {TRAIN_STEPS} steps "
+        f"in {run_s:.1f} s: losses "
+        + ", ".join(f"{h['loss']:.4f}" for h in hist)
+        + "; grad_norm " + ", ".join(f"{h['grad_norm']:.3g}" for h in hist)
+        + f"; finite {finite}, last below first {falls}: "
+        f"{'ok' if finite and falls else 'FAIL'}")
+    lines.append(
+        f"[18] (c) step times " + ", ".join(f"{h['sec']:.3f}" for h in hist)
+        + f" s; median after step 1 {1e3 * step_s:.1f} ms, "
+        f"{tokens / step_s:.0f} tokens/s, {flops / step_s / 1e12:.1f} "
+        f"TFLOP/s (6 N T = {6 * n_params * tokens / 1e12:.1f} TFLOP + "
+        f"attention 12 Dh pairs B H L = {attn_flops / 1e12:.1f} TFLOP a "
+        f"step), peak {peak:.2f} GB allocated, final checkpoint (params and "
+        f"opt/) {sum(saves):.1f} s in {len(saves)} saves [{smi}]")
+    lines.append(
+        f"[18] (c) launches in {TRAIN_STEPS} steps: {launches}, expected "
+        f"{want} (a step: {per_step}): {'ok' if counts_ok else 'FAIL'}")
+    batch = trainer.batch(TRAIN_STEPS)
+    state = {"p": params, "o": opt}
+
+    def step():
+        state["p"], state["o"], _, _ = trainer.step(state["p"], state["o"],
+                                                    batch)
+
+    wall, busy, kinds, top = _train_trace(step)
+    lines.append(
+        f"[18] (c) one traced step: wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}%); device ms by kind: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
+        + "; top kernels: "
+        + "; ".join(f"{name[:48]} x{n} {ms:.1f} ms" for name, n, ms in top[:10])
+        + f" [{smi}]")
+    del trainer, params, opt, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, launches, lines
+
+
+def training_phase(smi):
+    """Phase [18]: (a) the backward kernels against their plain versions
+    and timed, (b) a 2-layer step card against CPU, (c) the whole model
+    through Trainer.run, (d) the restart drill.  Returns (ok, main-path
+    launches, timings for the JSON line)."""
+    gen = torch.Generator("cuda").manual_seed(18)
+    t0 = time.perf_counter()
+    k1c, k1_same = k1_bwd_checks(gen)
+    k2c, lse_c, k2_same = k2_bwd_checks(gen)
+    ok_a = all([c.report("[18] (a)") for c in (k1c, k2c, lse_c)])
+    ok_a = ok_a and all(k1_same) and all(k2_same)
+    print(f"[18] (a) two runs bit-equal: rmsnorm_bwd {sum(k1_same)} of "
+          f"{len(k1_same)}, flash_attention_bwd {sum(k2_same)} of "
+          f"{len(k2_same)} ({time.perf_counter() - t0:.1f} s): "
+          f"{'ok' if all(k1_same) and all(k2_same) else 'FAIL'}")
+    timings = [k1_bwd_timing(gen, *K1_BWD_SHAPES[0], fused=True),
+               k1_bwd_timing(gen, *K1_BWD_SHAPES[0], fused=False),
+               k1_bwd_timing(gen, *K1_BWD_SHAPES[1], fused=False),
+               *(k2_bwd_timing(gen, *case) for case in K2_BWD_CASES)]
+    for tm in timings:
+        got, want = tm.pop("check")
+        tm["err"] = _err(got, want)
+        ok_a = ok_a and _close(got, want, BF16)
+        print_timing("[18] (a)", tm, smi)
+    torch.cuda.empty_cache()
+    ok_b, lines = train_card_vs_cpu()
+    print("\n".join(lines))
+    ok_c, launches, lines = train_whole(smi)
+    print("\n".join(lines))
+    ok_d, line = train_restart_drill()
+    print(line)
+    ok = ok_a and ok_b and ok_c and ok_d
+    print(f"[18] checks: (a) kernels {'ok' if ok_a else 'FAIL'}, (b) card "
+          f"against CPU {'ok' if ok_b else 'FAIL'}, (c) whole model "
+          f"{'ok' if ok_c else 'FAIL'}, (d) restart {'ok' if ok_d else 'FAIL'}"
+          f" ({time.perf_counter() - t0:.1f} s)")
+    return ok, launches, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on a GPU",
@@ -3563,7 +4105,18 @@ def main() -> int:
     print(f"[17] observability: {'ok' if ok17 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # -- 18. result -----------------------------------------------------------
+    # -- 18. training: the backward kernels, a 2-layer step card against
+    # CPU, qwen3-0.6b whole through Trainer.run, the restart drill ----------
+    t0 = time.perf_counter()
+    ok18, grew, train_timings = training_phase(smi)
+    for k, n in grew.items():
+        launches[k] = launches.get(k, 0) + n
+    for tm in train_timings:
+        table.setdefault(tm["name"], tm)
+    print(f"[18] training: {'ok' if ok18 else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 19. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
                "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -3577,7 +4130,15 @@ def main() -> int:
                "gbt_split": ("cuda", "src/repro_torch/csrc/gbt_hist.cu",
                              "src/repro/core/gbt.py:608"),
                "gbt_grow": ("cuda", "src/repro_torch/csrc/gbt_hist.cu",
-                            "src/repro/kernels/gbt_hist/kernel.py:49")}
+                            "src/repro/kernels/gbt_hist/kernel.py:49"),
+               # the backward kernels replace no TPU kernel (the reference
+               # differentiates the jnp twins): each names the TPU kernel
+               # whose gradient it computes
+               "rmsnorm_bwd": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
+                               "src/repro/kernels/rmsnorm/kernel.py:24"),
+               "flash_attention_bwd": (
+                   "cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:76")}
     # gbt_split runs only on the level path, for fits beyond a block's
     # shared memory; no main-path fit is one (phase [3] drives that path)
     off_main = {"gbt_split"}
@@ -3602,10 +4163,11 @@ def main() -> int:
               "[14] MoE and recurrent blocks": ok14,
               "[15] encoder-decoder and vision": ok15,
               "[16] serving stack": ok16, "[17] observability": ok17,
-              "[18] launches": all(
+              "[18] training": ok18,
+              "[19] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())
-    print(f"[18] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+    print(f"[19] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
           + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not ok:
         failed = [name for name, good in phases.items() if not good]

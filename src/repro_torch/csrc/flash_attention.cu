@@ -53,6 +53,11 @@
 // CUDA cores: the checks hold fp32 to 2e-5, which TF32 products would not
 // meet, and the serving path never sends fp32 here.
 //
+// Training asks either kernel for each query row's log-sum-exp of its
+// scores as well (an fp32 (B, H, Sq) output, written only when its
+// pointer is not null): the backward rebuilds the probabilities from it.
+// Serving passes null, and its launches are as they were.
+//
 // Unlike the TPU kernel both read q, k, v in the model's (B, Sq | Sk,
 // H | KV, Dh) layout through strides (no transposed copies) and mask a
 // ragged Sq or Sk themselves (no padding to the tile size).
@@ -77,6 +82,7 @@ struct FlashParams {
   int64_t o_sb, o_ss, o_sh;
   float scale;
   int causal;
+  float* lse;  // (B, H, Sq) log-sum-exp of each row's scores; null: none
 };
 
 // ---------------------------------------------------------------- fp32 --
@@ -225,6 +231,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_fp32(FlashParams p) {
           acc[i] / fmaxf(l_s[r], 1e-30f);
     }
   }
+  if (p.lse && tid < BQ && q0 + tid < p.Sq)
+    p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + q0 + tid] =
+        m_s[tid] + logf(l_s[tid]);
 }
 
 // ---------------------------------------------------------------- bf16 --
@@ -681,6 +690,9 @@ __global__ void __launch_bounds__(GNT, 2)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     const int rr = g + 8 * r;
+    if (p.lse && t == 0 && row0 + 8 * r < p.Sq)  // m is log2, scaled
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + row0 + 8 * r] =
+          (m[r] + log2f(l[r])) * 0.6931471805599453f;
 #pragma unroll
     for (int dn = 0; dn < CH; ++dn)
       *reinterpret_cast<uint32_t*>(Os + rr * DH + (dn ^ (rr % SW)) * 8 +
@@ -820,17 +832,20 @@ cudaError_t launch(const FlashParams& p, int dtype, int B,
 
 // dtype: 0 = float32, 1 = bfloat16.  q and o hold Sq rows, k and v Sk.
 // Strides are in elements; the last dimension of every tensor is
-// contiguous.  Returns a cudaError_t.
+// contiguous.  lse: null, or a contiguous (B, H, Sq) float32 buffer that
+// receives each row's log-sum-exp of its scaled, masked scores (m + log
+// l), which the backward (flash_attention_bwd.cu) reads.  Returns a
+// cudaError_t.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Sk, int H, int KV, int DH, int64_t q_sb, int64_t q_ss,
     int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
-    int causal, void* stream) {
+    int causal, float* lse, void* stream) {
   FlashParams p{q,    k,    v,    o,    Sq,   Sk,   H,    KV,   q_sb,
                 q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb,
-                o_ss, o_sh, scale, causal};
+                o_ss, o_sh, scale, causal, lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (DH) {
     case 16: return launch<16>(p, dtype, B, st);

@@ -21,7 +21,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("rmsnorm", "flash_attention", "decode_attention", "gbt_hist")
+SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd",
+           "decode_attention", "gbt_hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,9 +2,11 @@
 
 ``init_*`` functions return plain dicts of tensors drawn from an explicit
 ``torch.Generator`` on its device; apply functions are plain functions on
-tensors.  Matrices are held in ``cfg.compute_dtype`` (the JAX package casts
-them at every use, with the same rounding); norm scales stay in
-``cfg.param_dtype`` and norms are computed in fp32.
+tensors.  A serving model holds its matrices in ``cfg.compute_dtype`` (the
+JAX package casts them at every use, with the same rounding); a training
+model holds every parameter in ``cfg.param_dtype`` and casts each matrix
+at its use, as the JAX package does (``models.transformer``).  Norm scales
+stay in ``cfg.param_dtype`` and norms are computed in fp32.
 """
 from __future__ import annotations
 
@@ -110,9 +112,67 @@ def init_embeddings(cfg: ModelConfig, generator: torch.Generator):
 
 
 def embed(cfg: ModelConfig, params, tokens):
-    return params["tok_embed"][tokens]
+    # gathered, then cast to the compute dtype (a no-op when it holds it)
+    return params["tok_embed"][tokens].to(cfg.compute_dtype)
 
 
 def lm_logits(cfg: ModelConfig, params, x):
     w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ w
+    return x @ w.to(cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+# rows of logits widened to fp32 at a time: about 1 GB of fp32 temporaries
+# at a 152k vocabulary, where the whole (B*S, V) in fp32 would take 10 GB
+# at qwen3-0.6b's training shape
+CE_CHUNK_ELEMENTS = 2 ** 28
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """The mean CE of the reference's ``layers.cross_entropy`` with its
+    gradient written out, ``(softmax - onehot) * mask / count``, over row
+    chunks: it saves the logits as they are and each row's log-sum-exp,
+    never a full fp32 copy.  Its forward and backward are profiler ranges
+    (``cross_entropy``, ``cross_entropy_bwd``), which a traced training
+    step reads to attribute their device time."""
+
+    @staticmethod
+    @torch.profiler.record_function("cross_entropy")
+    def forward(ctx, logits, labels, vocab_size):
+        v = logits.shape[-1]
+        flat, lab = logits.reshape(-1, v), labels.reshape(-1)
+        mask = (lab >= 0) & (lab < vocab_size)
+        safe = torch.where(mask, lab, 0)
+        rows = max(1, CE_CHUNK_ELEMENTS // v)
+        lse = torch.cat([torch.logsumexp(flat[i:i + rows].float(), dim=-1)
+                         for i in range(0, flat.shape[0], rows)])
+        gold = flat.gather(1, safe[:, None])[:, 0].float()
+        count = mask.sum().clamp_min(1)
+        ctx.save_for_backward(logits, safe, mask, lse, count)
+        return ((lse - gold) * mask).sum() / count
+
+    @staticmethod
+    @torch.profiler.record_function("cross_entropy_bwd")
+    def backward(ctx, g):
+        logits, safe, mask, lse, count = ctx.saved_tensors
+        v = logits.shape[-1]
+        flat = logits.reshape(-1, v)
+        weight = mask.float() * (g / count)
+        grad = torch.empty_like(flat)
+        rows = max(1, CE_CHUNK_ELEMENTS // v)
+        for i in range(0, flat.shape[0], rows):
+            sl = slice(i, i + rows)
+            p = torch.exp(flat[sl].float() - lse[sl, None])
+            p[torch.arange(p.shape[0], device=p.device), safe[sl]] -= 1.0
+            grad[sl] = (p * weight[sl, None]).to(grad.dtype)
+        return grad.view_as(logits), None, None
+
+
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean CE in fp32 over the last axis of ``logits`` (the padded
+    vocabulary, padding columns included, as the reference computes it);
+    labels < 0 or >= vocab_size (padding) are masked."""
+    return _CrossEntropy.apply(logits, labels, vocab_size)

@@ -1,8 +1,16 @@
-"""The model: init / encode / prefill / decode for every block kind of
-``repro.models.transformer`` that serving runs: a mixer (attention, Mamba,
+"""The model: init / train_loss / encode / prefill / decode for every
+block kind of ``repro.models.transformer``: a mixer (attention, Mamba,
 mLSTM or sLSTM) and an FFN (dense SwiGLU, MoE or none) per position of
 the period; whisper's encoder stack and cross attention; internvl2's
 vision frontend.
+
+A serving model (``init``/``load`` without ``train``) holds each matrix
+in ``cfg.compute_dtype``, cast once, with no gradient.  A training model
+(``train=True``) holds every parameter in ``cfg.param_dtype`` with
+``requires_grad`` and casts each matrix to ``cfg.compute_dtype`` at its
+use, as the JAX package does; ``train_loss`` runs the same fused block
+order as prefill, through the same kernels, whose backward is a kernel
+too (``kernels/rmsnorm``, ``kernels/flash_attention``).
 
 The stack is a Python loop over ``cfg.n_periods`` periods of
 ``cfg.period`` blocks; parameters are named as the JAX pytree
@@ -25,10 +33,13 @@ value and can be captured as a CUDA graph.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -39,8 +50,9 @@ from repro_torch.models.config import (FFN_DENSE, FFN_MOE, MIXER_ATTN,
                                        BlockSpec, ModelConfig)
 
 # Parameters that keep cfg.param_dtype (norm scales, and what the JAX
-# package reads in float32); every other one is a matrix or bias and is
-# held in cfg.compute_dtype.
+# package reads in float32); every other one is a matrix or bias, held in
+# cfg.compute_dtype by a serving model and cast to it at its use by a
+# training model.
 _PARAM_DTYPE = ("scale", "q_norm", "k_norm", "A_log", "D", "dt_bias")
 
 _FULL = {MIXER_MAMBA: ssm.mamba_full, MIXER_MLSTM: ssm.mlstm_full,
@@ -129,6 +141,18 @@ class _ParamTree(nn.Module):
     def __setitem__(self, key, value: nn.Parameter):
         self.register_parameter(key, value)
 
+    def items(self):
+        return [*self._parameters.items(), *self._modules.items()]
+
+
+def _cast(cfg: ModelConfig, tree) -> dict:
+    """A block's parameters as a training model's forward uses them:
+    nested dicts, each matrix and bias cast to ``cfg.compute_dtype`` (a
+    differentiable cast), the ``_PARAM_DTYPE`` ones as they are."""
+    return {k: (_cast(cfg, v) if isinstance(v, nn.Module) else
+                v if k in _PARAM_DTYPE else v.to(cfg.compute_dtype))
+            for k, v in tree.items()}
+
 
 def _block_module(cfg: ModelConfig, spec: BlockSpec,
                   cross: bool = False) -> nn.ModuleDict:
@@ -151,16 +175,20 @@ def _residuals(cfg, spec, block, x, out, next_norm, memory=None, pos=None):
     with ``cross_norm`` and cross attention (``attend_cross`` at ``pos``);
     the residual add fused with ``norm2``, the FFN, and its add fused with
     ``next_norm``; without an FFN the last add is fused with
-    ``next_norm``.  Returns (x, next_norm(x)).  A MoE block's aux loss is
-    dropped, as the reference's prefill and decode drop it."""
+    ``next_norm``.  Returns (x, next_norm(x), the MoE block's aux loss or
+    None); the reference's prefill and decode drop the aux loss, its
+    ``train_loss`` adds it."""
+    aux = None
     if memory is not None:
         x, hc = L.add_rmsnorm(x, out, block["cross_norm"], cfg.norm_eps)
         out = attn.attend_cross(cfg, block["cross_attn"], hc, memory, pos)
     if "norm2" in block:
         x, h2 = L.add_rmsnorm(x, out, block["norm2"], cfg.norm_eps)
-        out = (moe_mod.moe_ffn(cfg, block["moe"], h2)[0]
-               if spec.ffn == FFN_MOE else L.mlp(cfg, block["mlp"], h2))
-    return L.add_rmsnorm(x, out, next_norm, cfg.norm_eps)
+        if spec.ffn == FFN_MOE:
+            out, aux = moe_mod.moe_ffn(cfg, block["moe"], h2)
+        else:
+            out = L.mlp(cfg, block["mlp"], h2)
+    return (*L.add_rmsnorm(x, out, next_norm, cfg.norm_eps), aux)
 
 
 def _state_zeros(cfg: ModelConfig, spec: BlockSpec, batch: int,
@@ -190,12 +218,17 @@ def flatten_params(prefix: str, tree: dict) -> dict:
 class Model(nn.Module):
     """The model.  ``Model(cfg)`` holds no tensors until
     ``init(generator)`` draws them or ``load(params)`` takes them; the model
-    then lives on that device."""
+    then lives on that device.  ``remat=True`` recomputes each period's
+    activations in the backward of ``train_loss`` instead of keeping them
+    (``torch.utils.checkpoint``, as the reference wraps each period in
+    ``jax.checkpoint``)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.remat = remat
+        self.trainable = False
         self.embed = nn.ParameterDict()
         self.final_norm = nn.ParameterDict()
         self.blocks = nn.ModuleList(
@@ -221,9 +254,12 @@ class Model(nn.Module):
         return self.cfg.n_patches if self.cfg.frontend == "vision" else 0
 
     # -- parameters ----------------------------------------------------------
-    def init(self, generator: torch.Generator) -> "Model":
-        """Draws every parameter from ``generator``, on its device."""
+    def init(self, generator: torch.Generator, train: bool = False) -> "Model":
+        """Draws every parameter from ``generator``, on its device; with
+        ``train``, in ``cfg.param_dtype`` (``load(..., train=True)``)."""
         cfg, dev = self.cfg, generator.device
+        if train:  # matrices drawn in the parameter dtype
+            cfg = dataclasses.replace(cfg, compute_dtype=cfg.param_dtype)
         params = flatten_params("embed", L.init_embeddings(cfg, generator))
         params.update(flatten_params("final_norm", L.init_rmsnorm(cfg, dev)))
         for p in range(cfg.n_periods):
@@ -240,22 +276,32 @@ class Model(nn.Module):
         if cfg.frontend == "vision":
             params["vis_proj"] = L.dense_init(
                 generator, (cfg.d_model, cfg.d_model), cfg.compute_dtype)
-        return self.load(params)
+        return self.load(params, train=train)
 
-    def load(self, params: Dict[str, torch.Tensor]) -> "Model":
+    def load(self, params: Dict[str, torch.Tensor],
+             train: bool = False) -> "Model":
         """Takes parameters named ``<module path>.<key>`` (as ``init`` and
         ``repro_torch.weights.params_from_jax`` make them; ``vis_proj``
-        has no path), casting each matrix to ``cfg.compute_dtype`` once."""
+        has no path).  Serving: each matrix cast to ``cfg.compute_dtype``
+        once, no gradient.  ``train``: every parameter in
+        ``cfg.param_dtype`` with ``requires_grad`` (a float32 tensor is
+        taken as it is, sharing its storage), each matrix cast at its use."""
         for name, t in params.items():
             path, _, key = name.rpartition(".")
-            dtype = (self.cfg.param_dtype if key in _PARAM_DTYPE
+            dtype = (self.cfg.param_dtype if train or key in _PARAM_DTYPE
                      else self.cfg.compute_dtype)
-            param = nn.Parameter(t.to(dtype), requires_grad=False)
+            param = nn.Parameter(t.detach().to(dtype), requires_grad=train)
             if path:
                 self.get_submodule(path)[key] = param
             else:
                 setattr(self, key, param)
+        self.trainable = train
         return self
+
+    def _params(self, block):
+        """A block's parameters as its forward reads them: cast at use in
+        a training model, the held tensors in a serving one."""
+        return _cast(self.cfg, block) if self.trainable else block
 
     # -- serving -------------------------------------------------------------
     def _layers(self):
@@ -294,22 +340,28 @@ class Model(nn.Module):
         """The encoder stack over ``frames`` (B, T, D): attention not
         causal, RoPE over 0..T-1, as the JAX package's ``encode``; returns
         ``enc_norm`` of its output."""
+        return self._encode(frames)
+
+    def _encode(self, frames):
+        """``encode``'s body, which ``train_loss`` differentiates."""
         cfg = self.cfg
         x = frames.to(cfg.compute_dtype)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         h = L.rmsnorm(x, self.enc_blocks[0]["norm1"], cfg.norm_eps)
         after = [block["norm1"] for block in self.enc_blocks[1:]]
         for block, norm in zip(self.enc_blocks, after + [self.enc_norm]):
-            out, _ = attn.attend_full(cfg, block["attn"], h, positions,
+            bp = self._params(block)
+            out, _ = attn.attend_full(cfg, bp["attn"], h, positions,
                                       causal=False)
-            x, h = _residuals(cfg, _ENC_SPEC, block, x, out, norm)
+            x, h, _ = _residuals(cfg, _ENC_SPEC, bp, x, out, norm)
         return h
 
     def _cross_kv(self, enc_out, cache: DecodeCache) -> None:
         """Each decoder layer's cross K/V of the encoder output, written
         into ``cache.cross`` in place."""
         for p, i, _, block, _ in self._layers():
-            k, v = attn._project_kv(self.cfg, block["cross_attn"], enc_out)
+            k, v = attn._project_kv(self.cfg,
+                                    self._params(block)["cross_attn"], enc_out)
             cache.cross[i].k[p].copy_(k)
             cache.cross[i].v[p].copy_(v)
 
@@ -368,13 +420,13 @@ class Model(nn.Module):
             cache = cache._replace(pos=s)
         x = L.embed(cfg, self.embed, tokens)
         if cfg.frontend == "vision":
-            vis = patches.to(cfg.compute_dtype) @ self.vis_proj
-            x = torch.cat([vis, x], dim=1)
+            x = torch.cat([self._vision(patches), x], dim=1)
         if cfg.is_encdec:
             self._cross_kv(self.encode(frames), cache)
         h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
         positions = torch.arange(s, device=x.device)[None, :]
         for p, i, spec, block, norm in self._layers():
+            block = self._params(block)
             params, dst = block[spec.mixer], cache.blocks[i]
             if spec.mixer == MIXER_ATTN:
                 out, kv = attn.attend_full(cfg, params, h, positions)
@@ -384,8 +436,8 @@ class Model(nn.Module):
                 out, state = _FULL[spec.mixer](cfg, params, h)
                 for t, new in zip(dst, state):
                     t[p].copy_(new)
-            x, h = _residuals(cfg, spec, block, x, out, norm,
-                              self._memory(cache, p, i))
+            x, h, _ = _residuals(cfg, spec, block, x, out, norm,
+                                 self._memory(cache, p, i))
         return L.lm_logits(cfg, self.embed, h[:, -1:]), cache
 
     @torch.inference_mode()
@@ -403,6 +455,7 @@ class Model(nn.Module):
         x = L.embed(cfg, self.embed, tokens)
         h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
         for p, i, spec, block, norm in self._layers():
+            block = self._params(block)
             params = block[spec.mixer]
             state = type(cache.blocks[i])(*(t[p] for t in cache.blocks[i]))
             if spec.mixer == MIXER_ATTN:
@@ -412,8 +465,69 @@ class Model(nn.Module):
                 out, new = _DECODE[spec.mixer](cfg, params, h, state)
                 for t, n in zip(state, new):
                     t.copy_(n)
-            x, h = _residuals(cfg, spec, block, x, out, norm,
-                              self._memory(cache, p, i), cache.cross_pos_t)
+            x, h, _ = _residuals(cfg, spec, block, x, out, norm,
+                                 self._memory(cache, p, i), cache.cross_pos_t)
         logits = L.lm_logits(cfg, self.embed, h)
         cache.pos_t.add_(1)
         return logits, cache._replace(pos=pos + 1)
+
+    # -- training ------------------------------------------------------------
+    def _vision(self, patches):
+        """The vision stub: the patches projected by ``vis_proj``."""
+        dtype = self.cfg.compute_dtype
+        return patches.to(dtype) @ self.vis_proj.to(dtype)
+
+    def _train_period(self, layers, positions, x, h, aux, enc):
+        """The blocks of one period over the whole sequence: (x, h, aux)
+        after them, ``h`` the norm after the period (the next block's
+        norm1, or the final norm), ``aux`` with each MoE block's aux loss
+        added.  ``enc``: the encoder's output, whose K/V each decoder
+        layer projects for its cross attention."""
+        cfg = self.cfg
+        for _, _, spec, block, norm in layers:
+            bp = self._params(block)
+            if spec.mixer == MIXER_ATTN:
+                out, _ = attn.attend_full(cfg, bp["attn"], h, positions)
+            else:
+                out, _ = _FULL[spec.mixer](cfg, bp[spec.mixer], h)
+            memory = (None if enc is None else attn.KVCache(
+                *attn._project_kv(cfg, bp["cross_attn"], enc)))
+            x, h, a = _residuals(cfg, spec, bp, x, out, norm, memory)
+            if a is not None:
+                aux = aux + a
+        return x, h, aux
+
+    def train_loss(self, batch: Dict[str, torch.Tensor]):
+        """The reference's ``train_loss``: ``batch`` holds 'tokens' and
+        'labels' (B, S) on the model's device, and 'frames' (B,
+        encoder_seq, D) for an encoder-decoder model or 'patches' (B,
+        n_patches, D) for the vision stub.  The mean next-token CE over
+        the text positions (labels past the vocabulary masked), plus
+        ``0.01 * aux / n_layers`` with MoE blocks.  The blocks run in
+        prefill's fused order; ``remat`` recomputes each period in the
+        backward."""
+        cfg = self.cfg
+        x = L.embed(cfg, self.embed, batch["tokens"])
+        enc = self._encode(batch["frames"]) if cfg.is_encdec else None
+        if cfg.frontend == "vision":
+            x = torch.cat([self._vision(batch["patches"]), x], dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layers, per = self._layers(), len(cfg.period)
+        for p in range(cfg.n_periods):
+            period = functools.partial(self._train_period,
+                                       layers[p * per:(p + 1) * per],
+                                       positions)
+            if self.remat:
+                x, h, aux = checkpoint(period, x, h, aux, enc,
+                                       use_reentrant=False)
+            else:
+                x, h, aux = period(x, h, aux, enc)
+        if cfg.frontend == "vision":
+            h = h[:, batch["patches"].shape[1]:]
+        logits = L.lm_logits(cfg, self.embed, h)
+        loss = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        if any(b.ffn == FFN_MOE for b in cfg.period):
+            loss = loss + 0.01 * aux / cfg.n_layers
+        return loss

@@ -22,7 +22,10 @@ float64 on the card (``traj_backend="torch"``) against numpy's, bit for
 bit on a dense config, within 1e-9 s on a MoE one, and refused without
 a card; a traced, step-capped fleet run's spans and step log on the
 card's trajectories equal to numpy's, and an audited ``OnlineALA`` on
-the card whose refits each grow a fit in one ``gbt_grow`` launch.  Every
+the card whose refits each grow a fit in one ``gbt_grow`` launch; the
+backward kernels (K1's plain and fused, K2's dQ, dK, dV from the
+forward's LSE) against their plain versions and bit-equal over two runs,
+and a smoke model's training step card against CPU.  Every
 test that needs a card
 skips without one; this file imports no JAX, so it runs where only torch
 is installed:
@@ -41,13 +44,16 @@ from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 from repro_torch.kernels.gbt_hist import ops as gh_ops
 from repro_torch.kernels.gbt_hist.cases import (KINDS, fit_case, fit_state,
                                                 level_case, level_state)
 from repro_torch.kernels.gbt_hist.ref import gbt_hist_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
-from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
+                                             add_rmsnorm_ref, rmsnorm_bwd_ref,
+                                             rmsnorm_ref)
 from repro_torch.models.transformer import Model
 
 pytestmark = pytest.mark.gpu
@@ -1256,3 +1262,101 @@ def test_audited_online_refits_grow_each_fit_in_one_launch(cuda):
     assert gh_ops.build_node_histograms.launches == hists
     assert gh_ops.split_level.launches == splits
     assert gbt._joint_histograms.levels == levels
+
+
+# ------------------------------------------------------------- training --
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (1, 256), (40, 96),
+                                   (4096, 1024), (8192, 4096), (5000, 16)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_rmsnorm_bwd_kernel(cuda, shape, dtype, fused):
+    """K1's backward against its plain version (dx, and dscale summed over
+    the rows), and bit-equal over two runs: no float atomics.  dscale is
+    held by the norm of its error: it sums up to 8,192 terms of order one
+    in fp32, so an element that cancels to near zero carries the
+    summation order's error (4e-5 at 8,192 x 4,096, relative 2e-4 to
+    that element)."""
+    gen = torch.Generator(cuda).manual_seed(11)
+    x, dy = (_randn(gen, shape, dtype, cuda) for _ in range(2))
+    ds = _randn(gen, shape, dtype, cuda) if fused else None
+    scale = 1 + 0.1 * _randn(gen, shape[-1:], torch.float32, cuda)
+    n = rms_ops.rmsnorm_bwd.launches
+    dx, dscale = rms_ops.rmsnorm_bwd(x, scale, dy, ds)
+    torch.cuda.synchronize()
+    assert rms_ops.rmsnorm_bwd.launches == n + 1
+    want = (add_rmsnorm_bwd_ref(x, scale, dy, ds) if fused
+            else rmsnorm_bwd_ref(x, scale, dy))
+    assert dx.dtype == dtype and dscale.dtype == torch.float32
+    torch.testing.assert_close(dx, want[0], **_tol(dtype))
+    assert (dscale - want[1]).norm() <= _tol(dtype)["rtol"] * want[1].norm()
+    again = rms_ops.rmsnorm_bwd(x, scale, dy, ds)
+    assert torch.equal(dx, again[0]) and torch.equal(dscale, again[1])
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal", [
+    (1, 128, 128, 4, 4, 64, True), (2, 256, 256, 8, 2, 128, True),
+    (2, 65, 65, 4, 2, 16, True), (1, 129, 129, 6, 2, 32, False),
+    (2, 1000, 1000, 8, 8, 64, False), (2, 100, 300, 4, 4, 64, False),
+    (1, 300, 100, 4, 2, 128, True), (1, 512, 1500, 16, 16, 64, False)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bwd_kernel(cuda, b, sq, sk, h, kv, dh, causal,
+                                    dtype):
+    """K2's backward (dq, dk, dv) against its plain version, from the
+    forward's output and LSE (the LSE against the plain one), bit-equal
+    over two runs; also through autograd on q, k, v."""
+    gen = torch.Generator(cuda).manual_seed(12)
+    q = _randn(gen, (b, sq, h, dh), dtype, cuda)
+    k, v = (_randn(gen, (b, sk, kv, dh), dtype, cuda) for _ in range(2))
+    dout = _randn(gen, (b, sq, h, dh), dtype, cuda)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal)
+    hm = [t.transpose(1, 2) for t in (q, k, v, out, dout)]
+    torch.testing.assert_close(
+        lse, attention_ref(*hm[:3], causal=causal, return_lse=True)[1],
+        **_tol(dtype))
+    n = fa_ops.flash_attention_bwd.launches
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd.launches == n + 1
+    want = attention_bwd_ref(*hm, causal=causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.transpose(1, 2), **_tol(dtype))
+    again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fa_ops.flash_attention(*leaves, causal=causal).backward(dout)
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-medium"])
+def test_train_step_on_card_matches_cpu(cuda, arch, tmp_path):
+    """One Trainer step of a smoke model in fp32 on the card against the
+    CPU from the same parameters and batch: the loss within 1e-4, each
+    gradient within 1e-3 of its norm; the step's K1 and K2 launches."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    cfg = get_smoke_config(arch).scaled(compute_dtype=torch.float32)
+    shape = ShapeSpec("t", 64, 2, "train")
+    tc = TrainConfig(ckpt_dir=str(tmp_path), opt=AdamWConfig(warmup_steps=2))
+    cpu = Trainer(Model(cfg), shape, None, tc, device="cpu")
+    card = Trainer(Model(cfg), shape, None, tc)
+    params, opt = cpu.init_state(0)
+    card.model.load({k: t.detach().to(cuda) for k, t in params.items()},
+                    train=True)
+    cparams = dict(card.model.named_parameters())
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention_bwd.launches,
+              rms_ops.rmsnorm_bwd.launches)
+    _, _, loss_cpu, _ = cpu.step(params, opt, cpu.batch(0))
+    _, _, loss_card, _ = card.step(cparams, adamw_init(cparams),
+                                   card.batch(0))
+    n_attn = cfg.n_layers * (2 if cfg.is_encdec else 1) + cfg.n_encoder_layers
+    fwd, bwd, k1 = (fa_ops.flash_attention.launches - before[0],
+                    fa_ops.flash_attention_bwd.launches - before[1],
+                    rms_ops.rmsnorm_bwd.launches - before[2])
+    assert (fwd, bwd) == (n_attn, n_attn) and k1 > 0
+    assert abs(float(loss_card) - float(loss_cpu)) <= 1e-4 * float(loss_cpu)
+    for k, p in params.items():
+        g = cparams[k].grad.cpu()
+        assert (g - p.grad).norm() <= 1e-3 * p.grad.norm() + 1e-12, k
