@@ -13,46 +13,78 @@
 // dK and dV summed over the G = H / KV query heads that share a KV head.
 //
 // What bounds it on the H100: operations.  At qwen3-0.6b's training shape
-// (B 4, S 4,096, H 16, KV 8, Dh 128, causal) one call does five products
-// of the kept (row, key) pairs, 2 x Dh flops a pair each: 5 x 2 x 128 x
-// 64 x 8.4 M pairs = 0.69 TFLOP, 0.70 ms on the bf16 tensor cores, against
-// 0.5 GB of q, k, v, o, dO, dq, dk and dv (0.15 ms at 3.35 TB/s).  It is
-// simple before it is fast.  Its design:
-//  - three launches: D = rowsum(dO * O) over every query row (a group of
-//    Dh / 16-byte-vector threads a row); then the dK/dV kernel, one block
-//    a (key tile of 64, KV head, batch), which holds its K and V tiles
-//    and its dK and dV accumulators (fp32, in registers) and loops over
-//    the G query heads of its group and, under the causal mask, only over
-//    the 64-row query tiles at or below its keys; then the dQ kernel, one
-//    block a (query tile of 64, head, batch, heaviest first), which loops
-//    over the key tiles its rows see.  Each output is written once by one
-//    block, with no atomics, so GQA's sum over the group runs in a fixed
-//    order and two runs give the same bits.  Both recompute S and dP = dO
-//    V^T (seven products in all where five would do with a dQ summed
-//    across blocks);
-//  - bf16 runs every product on the tensor cores (mma.sync m16n8k16, fp32
-//    accumulation) in FA2's layout: four warps a block, each owning 16 of
-//    the block's 64 keys (dK/dV) or query rows (dQ), so the fragments of
-//    S^T, dP^T (or S, dP) become P and dS in registers and, rounded to
-//    bf16, the A operand of dV += P^T dO, dK += dS^T Q (dQ += dS K)
-//    without touching shared memory; tiles are bf16 in shared memory,
-//    rows Dh + 8 elements apart so that the 8 rows of an ldmatrix fall in
-//    8 bank groups; the streamed tiles (Q and dO in dK/dV, K and V in dQ)
-//    sit in two stages, the next one copied (cp.async) under this one's
-//    products (103 KB a block at Dh 128: two blocks an SM);
-//  - fp32 keeps its products on the CUDA cores (fp32 tiles, each thread a
-//    4 x 4 register tile of S and dP, P and dS through shared memory; 171
-//    KB and 153 KB at Dh 128): the checks hold fp32 to 2e-5, which TF32
-//    or bf16 products would not meet;
-//  - q, k, v, o, dO are read in the model's (B, S | Sk, H | KV, Dh)
-//    layout through strides; rows past Sq or Sk are loaded as zeros and
-//    masked, so a ragged length needs no padding.
-// wgmma with TMA rings, fewer registers in dK/dV (255 and a spill at Dh
-// 128), and a dQ summed in the dK/dV pass are later work.
+// (B 4, S 4,096, H 16, KV 8, Dh 128, causal) the five products above (QK^T
+// again, dO V^T, P^T dO, dS K, dS^T Q) of the kept (row, key) pairs take 2
+// x Dh flops a pair each: 5 x 2 x 128 x 64 x 8.4 M pairs = 0.69 TFLOP,
+// 0.695 ms on the bf16 tensor cores, against 0.5 GB of q, k, v, o, dO, dq,
+// dk and dv (0.15 ms at 3.35 TB/s).  This design computes seven: S and dP
+// once in each of its two kernels, 0.973 ms at the same rate.  It keeps
+// them so that every output is written once, by one block, with no float
+// atomics: GQA's sum over the group runs in a fixed order and two runs
+// give the same bits.
+//
+// Three launches: D = rowsum(dO * O) over every query row (a group of Dh /
+// 16-byte-vector threads a row); the dK/dV kernel; the dQ kernel.  The
+// bf16 kernels, the ones training runs, take the forward's shape on this
+// card:
+//  - every product is a warpgroup wgmma with fp32 accumulation, in the
+//    forward's two forms: an m64n64k16 product of two K-major tiles in
+//    shared memory (S^T = K Q^T and dP^T = V dO^T in the dK/dV kernel, S =
+//    Q K^T and dP = dO V^T in the dQ kernel), and an m64n{Dh}k16 product
+//    whose A operand is in registers and whose B is an MN-major tile (dV
+//    += P^T dO, dK += dS^T Q; dQ += dS K);
+//  - P and dS are made in registers on the accumulator fragments (P =
+//    exp2(S scale log2e - lse log2e), dS = P (dP - D)) and, rounded to
+//    bf16, are the A operand of the next products: no score touches shared
+//    memory;
+//  - a block is warp-specialised: one producer warp keeps TMA loads
+//    (cp.async.bulk.tensor) of the streamed 64-row tiles in a ring of two
+//    stages with full and empty mbarriers, and two consumer warpgroups
+//    run the products.  A consumer warp releases a stage by arriving at
+//    its empty barrier, never at a block barrier.  setmaxnreg gives the
+//    producer's warpgroup 24 registers a thread and the consumers 240, so
+//    the dK and dV accumulators (64 keys x Dh 128, 128 registers) stay in
+//    registers with nothing spilled;
+//  - the dK/dV kernel: one block owns 128 keys of one KV head of one
+//    sequence, 64 a consumer warpgroup, K and V loaded once by TMA and
+//    kept in shared memory.  The ring streams Q and dO tiles with the 64
+//    rows' lse and D, over the group's G query heads in a fixed order and,
+//    under the causal mask, only over query tiles at or below the keys.
+//    The producer reads the next rows' lse and D while the stage drains
+//    and requests the tiles before it stores them;
+//  - the dQ kernel: one block owns 128 query rows of one head, 64 a
+//    consumer warpgroup, Q and dO resident; the ring streams K and V tiles
+//    of 64 keys, only those at or left of the diagonal; query tiles are
+//    handed out heaviest first; P is made while dP's product runs;
+//  - tiles use the 128-, 64- or 32-byte swizzle that TMA writes and wgmma
+//    reads, through maps over the model's strided (B, S | Sk, H | KV, Dh)
+//    views (no transposed copies).  TMA fills rows past Sq or Sk with
+//    zeros; the kernels mask the ragged edge and the top-left causal mask
+//    elementwise on the tiles that need it, in a body of their own (a test
+//    per element, inside the unrolled loop, compiles to a branch around
+//    each exponential, which serialises them), and tiles wholly above the
+//    diagonal are never loaded;
+//  - dK and dQ get the scale once, in fp32, before the single rounding to
+//    bf16; outputs are staged in the block's own tiles and stored 16 bytes
+//    a lane.
+// The fp32 kernels keep their products on the CUDA cores (fp32 tiles, each
+// thread a 4 x 4 register tile of S and dP, P and dS through shared memory;
+// 171 KB and 153 KB at Dh 128): the checks hold fp32 to 2e-5, which TF32 or
+// bf16 products would not meet.
+// Left for later: summing dQ in the dK/dV pass (five products, not seven)
+// needs a cross-block sum that keeps the bits.  A consumer warpgroup's
+// tile is its first products, then its elementwise work, then its last
+// products; the two warpgroups run in step, so the tensor cores wait
+// while both work on their registers.  Turns between them at each product
+// (FA3's ping-pong), a one-off offset between them, a third ring stage
+// and Q and dO as register operands in the dQ kernel were each tried on
+// the H100 and none was faster (PERF.md).
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace repro;
 using bf16 = __nv_bfloat16;
 
 struct BwdParams {
@@ -373,347 +405,464 @@ __global__ void __launch_bounds__(NT) fa_bwd_dq(BwdParams p) {
   }
 }
 
-// ------------------------------------------------------- bf16, mma.sync --
-// The bf16 path runs every product on the tensor cores (mma.sync
-// m16n8k16, fp32 accumulation), FA2's layout: a block is MW warps, each
-// owning 16 rows of its output (keys in the dK/dV kernel, query rows in
-// the dQ kernel), so P and dS never leave registers: the accumulator
-// fragments of S (or S^T) and dP become, rounded to bf16, the A operand
-// of the next product.  Tiles are bf16 in shared memory, rows DH + 8
-// elements apart (eight rows read by one ldmatrix fall in eight bank
-// groups), loaded with 16-byte vectors.
-constexpr int MW = 4;          // warps a block
-constexpr int MNT = 32 * MW;   // threads a block
-constexpr int MROWS = 16 * MW; // the block's own rows: 64
-constexpr float LOG2E = 1.4426950408889634f;
-static_assert(MROWS == BQ && MROWS == BK, "tiles of 64 on both sides");
+// --------------------------------------------- bf16, wgmma fed by TMA --
+// Both kernels are three warpgroups: warpgroup 0 the producer (its warp 0
+// starts the TMA loads), warpgroups 1 and 2 the consumers, each owning 64
+// of the block's 128 rows of output (keys in the dK/dV kernel, query rows
+// in the dQ kernel).  The accumulator of m64nN (PTX ISA): warp w of a
+// warpgroup holds rows 16 w + g and 16 w + g + 8; d[4 i + e] is column 8 i
+// + 2 t + (e & 1) of row g + 8 (e >> 1); an A operand from registers takes
+// mma.m16n8k16's A layout in each warp.
+constexpr int CWG = 2;                // consumer warpgroups a block
+constexpr int WNT = 128 * (CWG + 1);  // threads a block
+constexpr int WROWS = 64 * CWG;       // the block's rows of output
+constexpr int RING = 2;               // stages of the streamed tiles
+constexpr int PRODUCER_REGS = 24;     // registers a thread after setmaxnreg
+constexpr int CONSUMER_REGS = 240;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-// d += a b, m16n8k16, bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ float fast_exp2(float x) {  // 2^x, ex2.approx
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// The block's own 2 x CWG tiles (K and V, or Q and dO), RING stages of the
+// two streamed tiles, RING x 64 lse and D values (the dK/dV kernel's), then
+// the mbarriers: own tiles, RING full, RING empty.  Tiles of 64 rows x Dh
+// bf16, 1024-byte aligned, in the swizzled layout.
+template <int DH>
+constexpr size_t wg_bwd_smem_bytes() {
+  return 1024 + (2 * CWG + 2 * RING) * 64 * DH * sizeof(bf16) +
+         2 * RING * 64 * sizeof(float) + (1 + 2 * RING) * sizeof(uint64_t);
 }
 
-// A 16-byte copy from global to shared memory that reads nothing and
-// writes zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// The first 1024-byte boundary in dynamic shared memory, found by pointer
+// arithmetic on `smem` (not through an integer), so that loads and stores
+// through it stay shared-memory instructions.
+__device__ __forceinline__ bf16* align1024(float4* smem) {
+  char* base = reinterpret_cast<char*>(smem);
+  const uint32_t pad = (1024 - (smem_addr(base) & 1023)) & 1023;
+  return reinterpret_cast<bf16*>(base + pad);
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// Starts the copy of rows [row0, row0 + 64) of a bf16 (*, DH) matrix,
-// rows `row_stride` apart, into shared memory DH + 8 elements a row
-// (cp.async, in the caller's commit group); rows at or past n_valid are
-// zeros.
+// One 64-row tile (all its panels) at row `row` into shared memory.
 template <int DH>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base,
-                                               int64_t row_stride, int row0,
-                                               int n_valid) {
-  constexpr int LD = DH + 8, CH = DH / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += MNT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool valid = row0 + r < n_valid;
-    cp_async16(dst + r * LD + c,
-               valid ? base + static_cast<int64_t>(row0 + r) * row_stride + c
-                     : base,
-               valid);
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int head,
+                                         int batch, Slots sl) {
+  constexpr int RB = Swz<DH>::RB, PANEL = 64 * RB / 2;
+  for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
+    tma_load(dst + pn * PANEL, map, bar, pn * RB / 2, row, head, batch, sl);
+}
+
+// d = a b^T (64 x 64) over Dh: a and b 64-row tiles, both K-major, Dh / 16
+// steps of m64n64k16; the caller fences, commits and waits.  A 16-deep
+// step moves 32 B along the row, and to the next panel after RB / 32
+// steps (in the descriptor's 16-byte units).
+template <int DH>
+__device__ __forceinline__ void product_abt(float (&d)[32], const bf16* a,
+                                            const bf16* b) {
+  constexpr int RB = Swz<DH>::RB;
+  const uint64_t da = wg_desc<DH>(a, 16, 8 * RB);
+  const uint64_t db = wg_desc<DH>(b, 16, 8 * RB);
+  wgmma_ss_n64_first(d, da, db);
+#pragma unroll
+  for (int kc = 1; kc < DH / 16; ++kc) {
+    const int step = (kc % (RB / 32)) * 2 + (kc / (RB / 32)) * (64 * RB / 16);
+    wgmma_ss_n64(d, da + step, db + step);
   }
 }
 
-// lse (in log2 units) and D of rows [i0, i0 + 64) of head h into shared
-// memory (0 past Sq): plain loads, visible after the next barrier.
-__device__ __forceinline__ void load_row_stats(const BwdParams& p, int b,
-                                               int h, int i0, float* lse_s,
-                                               float* d_s) {
-  if (threadIdx.x < 64) {
-    const int i = i0 + threadIdx.x;
-    const int64_t at = (static_cast<int64_t>(b) * p.H + h) * p.Sq + i;
-    lse_s[threadIdx.x] = i < p.Sq ? p.lse[at] * LOG2E : 0.f;
-    d_s[threadIdx.x] = i < p.Sq ? p.delta[at] : 0.f;
-  }
+// d (64 x Dh) += a (64 x 64, four 16-deep A fragments in registers) * b (a
+// 64-row tile read MN-major): four steps of m64n{Dh}k16, 16 rows of b each.
+template <int DH>
+__device__ __forceinline__ void product_ab(float (&d)[DH / 2],
+                                           const uint32_t (&a)[4][4],
+                                           const bf16* b) {
+  constexpr int RB = Swz<DH>::RB;
+  const uint64_t db = wg_desc<DH>(b, 64 * RB, 8 * RB);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_rs<DH>(d, a[j], db + j * RB);
 }
 
-// acc (16 x 64, 8 n-tiles) += A B^T over k = 0..DH: A 16 rows of a tile at
-// row a0, B the 64 rows of a tile, both [row][k] in shared memory.
-template <int DH>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* A,
-                                        int a0, const bf16* B) {
-  constexpr int LD = DH + 8;
-  const int lane = threadIdx.x & 31;
+// The 64 x 64 accumulator x rounded to bf16 as four A fragments.
+__device__ __forceinline__ void to_a_operand(uint32_t (&a)[4][4],
+                                             const float (&x)[32]) {
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, A + (a0 + (lane & 15)) * LD + kk * 16 + 8 * (lane >> 4));
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int n2 = 0; n2 < 4; ++n2) {
-      uint32_t b[4];
-      ldsm_x4(b, B + (n2 * 16 + (lane & 7) + 8 * (lane >> 4)) * LD + kk * 16 +
-                     8 * ((lane >> 3) & 1));
-      mma16816(acc[2 * n2], a, b[0], b[1]);
-      mma16816(acc[2 * n2 + 1], a, b[2], b[3]);
+    for (int e = 0; e < 4; ++e)
+      a[j][e] = pack_bf16(x[8 * j + 2 * e], x[8 * j + 2 * e + 1]);
+}
+
+// P^T in place of the S^T accumulator x: element 4 i + e is key key0 + 8
+// (e >> 1) against query i0 + 8 i + 2 t + (e & 1), whose lse (log2 units)
+// is lse[8 i + 2 t + (e & 1)]; with MASK (a tile on the ragged edge or the
+// diagonal), pairs past Sq or above the causal diagonal get 0.  MASK is a
+// template argument, so that the masked and the unmasked bodies are each
+// straight-line code: a test inside the unrolled loop becomes a branch
+// around every element, which serialises the exponentials.
+template <bool MASK>
+__device__ __forceinline__ void probs_t(float (&x)[32], const float* lse,
+                                        float scale2, int i0, int key0,
+                                        int Sq, int causal) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 l2 =
+        *reinterpret_cast<const float2*>(lse + 8 * i + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pr =
+          fast_exp2(fmaf(x[4 * i + e], scale2, -(e & 1 ? l2.y : l2.x)));
+      if constexpr (MASK) {
+        const int qi = i0 + 8 * i + 2 * t + (e & 1);
+        const bool keep =
+            (qi < Sq) & ((causal == 0) | (key0 + 8 * (e >> 1) <= qi));
+        x[4 * i + e] = keep ? pr : 0.f;
+      } else {
+        x[4 * i + e] = pr;
+      }
     }
   }
 }
 
-// out (16 x DH, DH / 8 n-tiles) += P B over k = 0..64: P the 16 x 64
-// fragments of an earlier product (rounded to bf16 here), B the 64 rows
-// of a tile, [k][n] in shared memory.
-template <int DH>
-__device__ __forceinline__ void mma_pb(float (&out)[DH / 8][4],
-                                       const float (&p)[8][4], const bf16* B) {
-  constexpr int LD = DH + 8;
-  const int lane = threadIdx.x & 31;
+// P in place of the S accumulator x of the dQ kernel: element 4 i + e is
+// row row0 + 8 (e >> 1), whose lse (log2 units) is lse2[e >> 1], against
+// key k0 + 8 i + 2 t + (e & 1); MASK as in probs_t, for keys past Sk or
+// right of the diagonal.
+template <bool MASK>
+__device__ __forceinline__ void probs(float (&x)[32], const float (&lse2)[2],
+                                      float scale2, int k0, int row0, int Sk,
+                                      int causal) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int dn = 0; dn < DH / 16; ++dn) {
-      uint32_t b[4];
-      ldsm_x4_t(b, B + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD +
-                       dn * 16 + 8 * (lane >> 4));
-      mma16816(out[2 * dn], a, b[0], b[1]);
-      mma16816(out[2 * dn + 1], a, b[2], b[3]);
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float pr = fast_exp2(fmaf(x[4 * i + e], scale2, -lse2[r]));
+      if constexpr (MASK) {
+        const int kj = k0 + 8 * i + 2 * t + (e & 1);
+        const bool keep =
+            (kj < Sk) & ((causal == 0) | (kj <= row0 + 8 * r));
+        x[4 * i + e] = keep ? pr : 0.f;
+      } else {
+        x[4 * i + e] = pr;
+      }
     }
+}
+
+// dS^T = P^T (dP^T - D) in place of the dP^T accumulator, D by query as
+// probs_t reads lse.
+__device__ __forceinline__ void dsoft_t(float (&dp)[32],
+                                        const float (&pt)[32],
+                                        const float* dd) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(dd + 8 * i + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * i + e] =
+          pt[4 * i + e] * (dp[4 * i + e] - (e & 1 ? d2.y : d2.x));
   }
 }
 
-// Six 64-row tiles (the block's two fixed ones, two streamed ones in two
-// stages) and two stages of 64 lse and D values.
+// Writes a consumer warp's 16 rows of a 64 x Dh accumulator, times `mul`
+// and rounded to bf16, to rows row0.. of `out` (rows `stride` apart; rows
+// at or past n_valid are not written).  The rows are staged in `stage`, 16
+// x Dh bf16 the warp owns, with 16-byte chunks XOR-swizzled by row against
+// bank conflicts, and stored 16 bytes a lane.
 template <int DH>
-constexpr size_t mma_smem_bytes() {
-  return 6 * 64 * (DH + 8) * sizeof(bf16) + 4 * 64 * sizeof(float);
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2],
+                                           float mul, bf16* stage, bf16* out,
+                                           int64_t stride, int row0,
+                                           int n_valid) {
+  constexpr int CH = DH / 8, SW = CH < 8 ? CH : 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = g + 8 * r;
+#pragma unroll
+    for (int dn = 0; dn < CH; ++dn)
+      *reinterpret_cast<uint32_t*>(stage + rr * DH + (dn ^ (rr % SW)) * 8 +
+                                   2 * t) =
+          pack_bf16(acc[4 * dn + 2 * r] * mul, acc[4 * dn + 2 * r + 1] * mul);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int rr = i / CH, c = i % CH;
+    if (row0 + rr < n_valid)
+      *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row0 + rr) *
+                                          stride + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + rr * DH +
+                                          (c ^ (rr % SW)) * 8);
+  }
 }
 
-// dK and dV on the tensor cores: block (KV head, batch, key tile); warp w
-// owns keys 16w..16w+15 of the tile.  Per query tile: S^T = K Q^T and
-// dP^T = V dO^T (16 x 64 a warp), then P^T and dS^T in registers, dV +=
-// P^T dO and dK += dS^T Q.  The (head, query tile) pairs stream through
-// two stages: the next pair's Q and dO load (cp.async) under this one's
-// products.
+// dK and dV: block (KV head, batch, key tile of 128, heaviest first).
+// Consumer warpgroup c owns keys j0 + 64 c..; per streamed (head, query
+// tile): S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in registers,
+// then dV += P^T dO and dK += dS^T Q.
 template <int DH>
-__global__ void __launch_bounds__(MNT) fa_bwd_dkdv_mma(BwdParams p) {
-  constexpr int LD = DH + 8, TILE = 64 * LD;
+__global__ void __launch_bounds__(WNT, 1)
+    fa_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, BwdParams p,
+                     Slots sq, Slots sk, Slots sv, Slots sdo) {
+  constexpr int TILE = 64 * DH;
+  constexpr uint32_t TILE_BYTES = TILE * sizeof(bf16);
+  static_assert(DH % 16 == 0 && DH <= 128, "unsupported head size");
   extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);
-  bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILE;       // 2 stages
-  bf16* dOs = Qs + 2 * TILE;  // 2 stages
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * TILE);  // 2 x 64, log2
-  float* d_s = lse_s + 2 * 64;                               // 2 x 64
+  bf16* Ks = align1024(smem4);
+  bf16* Vs = Ks + CWG * TILE;
+  bf16* Qs = Vs + CWG * TILE;    // RING stages
+  bf16* dOs = Qs + RING * TILE;  // RING stages
+  float* lse_s = reinterpret_cast<float*>(dOs + RING * TILE);  // log2 units
+  float* d_s = lse_s + RING * 64;
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(d_s + RING * 64);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + RING;
 
-  const int kvh = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * BK;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int kvh = blockIdx.x, b = blockIdx.y, j0 = blockIdx.z * WROWS;
   const int G = p.H / p.KV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, kw = 16 * warp;
-  const float scale2 = p.scale * LOG2E;
-  // query tiles at or below the keys under the causal mask; then each of
-  // the group's G heads
-  const int first = p.causal ? j0 / BQ : 0;
-  const int nq = max((p.Sq + BQ - 1) / BQ - first, 0), total = G * nq;
-  auto fetch = [&](int m, int st) {
-    const int h = kvh * G + m / nq, i0 = (first + m % nq) * BQ;
-    load_tile_bf16<DH>(Qs + st * TILE, static_cast<const bf16*>(p.q) +
-                                           b * p.q_sb + h * p.q_sh,
-                       p.q_ss, i0, p.Sq);
-    load_tile_bf16<DH>(dOs + st * TILE, static_cast<const bf16*>(p.dout) +
-                                            b * p.do_sb + h * p.do_sh,
-                       p.do_ss, i0, p.Sq);
-    load_row_stats(p, b, h, i0, lse_s + 64 * st, d_s + 64 * st);
-  };
-  load_tile_bf16<DH>(Ks, static_cast<const bf16*>(p.k) + b * p.k_sb +
-                             kvh * p.k_sh, p.k_ss, j0, p.Sk);
-  load_tile_bf16<DH>(Vs, static_cast<const bf16*>(p.v) + b * p.v_sb +
-                             kvh * p.v_sh, p.v_ss, j0, p.Sk);
-  if (total > 0) fetch(0, 0);
-  cp_async_commit();
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int m = 0; m < total; ++m) {
-    const int st = m & 1, i0 = (first + m % nq) * BQ;
-    if (m + 1 < total) fetch(m + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: tile m is in
-    __syncthreads();
-    const bf16* Q = Qs + st * TILE;
-    const bf16* dO = dOs + st * TILE;
-    const float* lse = lse_s + 64 * st;
-    const float* dd = d_s + 64 * st;
-    float st_[8][4], dpt[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st_[n][e] = dpt[n][e] = 0.f;
-    mma_abt<DH>(st_, Ks, kw, Q);
-    mma_abt<DH>(dpt, Vs, kw, dO);
-    // P^T and dS^T: element (key kw + g (+8), query n * 8 + 2t (+1))
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        const int i = i0 + c, j = j0 + kw + g + 8 * (e >> 1);
-        const bool keep = i < p.Sq && j < p.Sk && (!p.causal || j <= i);
-        const float pr =
-            keep ? fast_exp2(fmaf(st_[n][e], scale2, -lse[c])) : 0.f;
-        st_[n][e] = pr;
-        dpt[n][e] = pr * (dpt[n][e] - dd[c]);
-      }
-    mma_pb<DH>(dv, st_, dO);
-    mma_pb<DH>(dk, dpt, Q);
-    __syncthreads();  // stage st is read; the fetch at m + 1 refills it
+  // query tiles at or below the keys under the causal mask, for each of
+  // the group's G heads in order
+  const int first = p.causal ? j0 / 64 : 0;
+  const int nq = max((p.Sq + 63) / 64 - first, 0), total = G * nq;
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int st = 0; st < RING; ++st) {
+      mbar_init(&full[st], 33);        // 32 lanes, and lane 0's bytes
+      mbar_init(&empty[st], 4 * CWG);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
-  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
-  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * CWG * TILE_BYTES);
+        for (int c = 0; c < CWG; ++c) {
+          tma_tile<DH>(Ks + c * TILE, &tk, kvbar, j0 + 64 * c, kvh, b, sk);
+          tma_tile<DH>(Vs + c * TILE, &tv, kvbar, j0 + 64 * c, kvh, b, sv);
+        }
+      }
+      for (int m = 0; m < total; ++m) {
+        const int st = m % RING;
+        const int h = kvh * G + m / nq, i0 = (first + m % nq) * 64;
+        // the lane's rows' lse and D are read while the stage drains;
+        // the tiles are requested first, then the values stored, and
+        // every lane's arrival releases its stores
+        const int64_t at = (static_cast<int64_t>(b) * p.H + h) * p.Sq;
+        float l2[2], d2[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = j0 + kw + g + 8 * r;
-    if (j < p.Sk) {
+        for (int r = 0; r < 2; ++r) {  // 0 past Sq
+          const int i = i0 + lane + 32 * r;
+          l2[r] = i < p.Sq ? p.lse[at + i] * LOG2E : 0.f;
+          d2[r] = i < p.Sq ? p.delta[at + i] : 0.f;
+        }
+        if (m >= RING) mbar_wait(&empty[st], (m / RING - 1) & 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], 2 * TILE_BYTES);
+          tma_tile<DH>(Qs + st * TILE, &tq, &full[st], i0, h, b, sq);
+          tma_tile<DH>(dOs + st * TILE, &tdo, &full[st], i0, h, b, sdo);
+        }
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        const int col = n * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(dkp + static_cast<int64_t>(j) * p.dk_ss +
-                                     col) =
-            pack_bf16(dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvp + static_cast<int64_t>(j) * p.dv_ss +
-                                     col) =
-            pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
+        for (int r = 0; r < 2; ++r) {
+          lse_s[st * 64 + lane + 32 * r] = l2[r];
+          d_s[st * 64 + lane + 32 * r] = d2[r];
+        }
+        mbar_arrive(&full[st]);
       }
     }
+  } else {  // a consumer
+    regs_inc<CONSUMER_REGS>();
+    const int c = wg - 1, wk0 = j0 + 64 * c;  // this warpgroup's keys
+    const int key0 = wk0 + 16 * warp + (lane >> 2);  // keys key0, key0 + 8
+    const float scale2 = p.scale * LOG2E;
+    bf16* K = Ks + c * TILE;
+    bf16* V = Vs + c * TILE;
+    float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kvbar, 0);
+
+    for (int m = 0; m < total; ++m) {
+      const int st = m % RING, i0 = (first + m % nq) * 64;
+      mbar_wait(&full[st], (m / RING) & 1);
+      __syncwarp();
+      if (p.causal && i0 + 63 < wk0) {  // every row above our keys
+        if (lane == 0) mbar_arrive(&empty[st]);
+        continue;
+      }
+      const bf16* Q = Qs + st * TILE;
+      const bf16* dO = dOs + st * TILE;
+      const bool edge = i0 + 64 > p.Sq || (p.causal && i0 < wk0 + 63);
+      float s[32], dp[32];
+      uint32_t pa[4][4], sa[4][4];
+      wgmma_fence();
+      product_abt<DH>(s, K, Q);
+      product_abt<DH>(dp, V, dO);
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(s);
+      reg_fence(dp);
+      if (edge)
+        probs_t<true>(s, lse_s + st * 64, scale2, i0, key0, p.Sq, p.causal);
+      else
+        probs_t<false>(s, lse_s + st * 64, scale2, i0, key0, p.Sq, p.causal);
+      dsoft_t(dp, s, d_s + st * 64);
+      to_a_operand(pa, s);
+      to_a_operand(sa, dp);
+      wgmma_fence();
+      product_ab<DH>(dv, pa, dO);
+      product_ab<DH>(dk, sa, Q);
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(dv);
+      reg_fence(dk);
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with st
+    }
+
+    // keys past Sk are not written; keys no query row sees get zeros.
+    // Each warp stages its 16 rows in its own rows of its K and V tiles,
+    // which only this warpgroup's finished products read.
+    const int row0 = wk0 + 16 * warp;
+    store_rows<DH>(dk, p.scale, K + 16 * warp * DH,
+                   static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh,
+                   p.dk_ss, row0, p.Sk);
+    store_rows<DH>(dv, 1.f, V + 16 * warp * DH,
+                   static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh,
+                   p.dv_ss, row0, p.Sk);
   }
 }
 
-// dQ on the tensor cores: block (head, batch, query tile, heaviest
-// first); warp w owns query rows 16w..16w+15.  Per key tile: S = Q K^T
-// and dP = dO V^T, P and dS in registers, dQ += dS K.  The key tiles
-// stream through two stages: the next one's K and V load (cp.async)
-// under this one's products.
+// dQ: block (head, batch, query tile of 128, heaviest first).  Consumer
+// warpgroup c owns rows q0 + 64 c..; per streamed key tile: S = Q K^T and
+// dP = dO V^T, P and dS in registers, dQ += dS K.
 template <int DH>
-__global__ void __launch_bounds__(MNT) fa_bwd_dq_mma(BwdParams p) {
-  constexpr int LD = DH + 8, TILE = 64 * LD;
+__global__ void __launch_bounds__(WNT, 1)
+    fa_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, BwdParams p,
+                   Slots sq, Slots sk, Slots sv, Slots sdo) {
+  constexpr int TILE = 64 * DH;
+  constexpr uint32_t TILE_BYTES = TILE * sizeof(bf16);
+  static_assert(DH % 16 == 0 && DH <= 128, "unsupported head size");
   extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dOs = Qs + TILE;
-  bf16* Ks = dOs + TILE;      // 2 stages
-  bf16* Vs = Ks + 2 * TILE;   // 2 stages
-  float* lse_s = reinterpret_cast<float*>(Vs + 2 * TILE);  // log2 units
-  float* d_s = lse_s + 64;
+  bf16* Qs = align1024(smem4);
+  bf16* dOs = Qs + CWG * TILE;
+  bf16* Ks = dOs + CWG * TILE;  // RING stages
+  bf16* Vs = Ks + RING * TILE;  // RING stages
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + RING * TILE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + RING;
 
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int i0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WROWS;  // heaviest first
   const int kvh = h / (p.H / p.KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, qw = 16 * warp;
-  const float scale2 = p.scale * LOG2E;
-  int n_kt = (p.Sk + BK - 1) / BK;
-  if (p.causal) n_kt = min(n_kt, (i0 + BQ - 1) / BK + 1);
-  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  auto fetch = [&](int kt, int st) {
-    load_tile_bf16<DH>(Ks + st * TILE, kp, p.k_ss, kt * BK, p.Sk);
-    load_tile_bf16<DH>(Vs + st * TILE, vp, p.v_ss, kt * BK, p.Sk);
-  };
-  load_tile_bf16<DH>(Qs, static_cast<const bf16*>(p.q) + b * p.q_sb +
-                             h * p.q_sh, p.q_ss, i0, p.Sq);
-  load_tile_bf16<DH>(dOs, static_cast<const bf16*>(p.dout) + b * p.do_sb +
-                              h * p.do_sh, p.do_ss, i0, p.Sq);
-  load_row_stats(p, b, h, i0, lse_s, d_s);
-  fetch(0, 0);
-  cp_async_commit();
-  float dq[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1, j0 = kt * BK;
-    if (kt + 1 < n_kt) fetch(kt + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: tile kt is in
-    __syncthreads();
-    const bf16* K = Ks + st * TILE;
-    const bf16* V = Vs + st * TILE;
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<DH>(s, Qs, qw, K);
-    mma_abt<DH>(dp, dOs, qw, V);
-    // P and dS: element (row qw + g (+8), key n * 8 + 2t (+1))
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = qw + g + 8 * (e >> 1);
-        const int i = i0 + r, j = j0 + n * 8 + 2 * t + (e & 1);
-        const bool keep = i < p.Sq && j < p.Sk && (!p.causal || j <= i);
-        const float pr =
-            keep ? fast_exp2(fmaf(s[n][e], scale2, -lse_s[r])) : 0.f;
-        dp[n][e] = pr * (dp[n][e] - d_s[r]);
-      }
-    mma_pb<DH>(dq, dp, K);
-    __syncthreads();  // stage st is read; the fetch at kt + 1 refills it
-  }
-  cp_async_wait<0>();
-  bf16* dqp = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = i0 + qw + g + 8 * r;
-    if (i < p.Sq) {
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dqp + static_cast<int64_t>(i) * p.dq_ss +
-                                     n * 8 + 2 * t) =
-            pack_bf16(dq[n][2 * r] * p.scale, dq[n][2 * r + 1] * p.scale);
+  int n_kt = (p.Sk + 63) / 64;
+  if (p.causal) n_kt = min(n_kt, (q0 + WROWS - 1) / 64 + 1);
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < RING; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * CWG);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      mbar_expect_tx(qbar, 2 * CWG * TILE_BYTES);
+      for (int c = 0; c < CWG; ++c) {
+        tma_tile<DH>(Qs + c * TILE, &tq, qbar, q0 + 64 * c, h, b, sq);
+        tma_tile<DH>(dOs + c * TILE, &tdo, qbar, q0 + 64 * c, h, b, sdo);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % RING;
+        if (kt >= RING) mbar_wait(&empty[st], (kt / RING - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * TILE_BYTES);
+        tma_tile<DH>(Ks + st * TILE, &tk, &full[st], kt * 64, kvh, b, sk);
+        tma_tile<DH>(Vs + st * TILE, &tv, &full[st], kt * 64, kvh, b, sv);
+      }
+    }
+  } else {  // a consumer
+    regs_inc<CONSUMER_REGS>();
+    const int c = wg - 1, wq0 = q0 + 64 * c;  // this warpgroup's rows
+    const int row0 = wq0 + 16 * warp + (lane >> 2);  // rows row0, row0 + 8
+    const float scale2 = p.scale * LOG2E;
+    float lse2[2], dd[2];  // in log2 units; 0 past Sq
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + 8 * r;
+      const int64_t at = (static_cast<int64_t>(b) * p.H + h) * p.Sq + i;
+      lse2[r] = i < p.Sq ? p.lse[at] * LOG2E : 0.f;
+      dd[r] = i < p.Sq ? p.delta[at] : 0.f;
+    }
+    bf16* Q = Qs + c * TILE;
+    bf16* dO = dOs + c * TILE;
+    float dq[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt % RING, k0 = kt * 64;
+      mbar_wait(&full[st], (kt / RING) & 1);
+      __syncwarp();
+      if (p.causal && k0 > wq0 + 63) {  // wholly above our rows
+        if (lane == 0) mbar_arrive(&empty[st]);
+        continue;
+      }
+      const bf16* K = Ks + st * TILE;
+      const bf16* V = Vs + st * TILE;
+      const bool edge = k0 + 64 > p.Sk || (p.causal && k0 + 63 > wq0);
+      float s[32], dp[32];
+      uint32_t sa[4][4];
+      wgmma_fence();
+      product_abt<DH>(s, Q, K);
+      wgmma_commit();
+      product_abt<DH>(dp, dO, V);
+      wgmma_commit();
+      wgmma_wait<1>();  // P while dP runs
+      reg_fence(s);
+      if (edge)
+        probs<true>(s, lse2, scale2, k0, row0, p.Sk, p.causal);
+      else
+        probs<false>(s, lse2, scale2, k0, row0, p.Sk, p.causal);
+      wgmma_wait();
+      reg_fence(dp);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dp[x] = s[x] * (dp[x] - dd[(x >> 1) & 1]);
+      to_a_operand(sa, dp);
+      wgmma_fence();
+      product_ab<DH>(dq, sa, K);
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(dq);
+      if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with st
+    }
+
+    // each warp stages its 16 rows in its own rows of its Q tile
+    store_rows<DH>(dq, p.scale, Q + 16 * warp * DH,
+                   static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh,
+                   p.dq_ss, wq0 + 16 * warp, p.Sq);
   }
 }
 
@@ -727,52 +876,76 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, bool& done) {
   return err;
 }
 
-// The three launches: D, then dK/dV and dQ by `dkdv` and `dq` (threads a
-// block, dynamic shared memory of each); `ready` says whether each
-// kernel's shared memory limit has been raised.
-template <typename T, int DH, typename Kernel>
-cudaError_t launch_three(const BwdParams& p, cudaStream_t st, Kernel dkdv,
-                         size_t dkdv_smem, Kernel dq, size_t dq_smem,
-                         int threads_a_block, bool (&ready)[2]) {
+// D = rowsum(dO * O), the first launch of either path.
+template <typename T, int DH>
+cudaError_t launch_delta(const BwdParams& p, cudaStream_t st) {
   constexpr int CH = DH / (16 / sizeof(T));
-  cudaError_t err;
-  if ((err = allow_smem(dkdv, dkdv_smem, ready[0])) != cudaSuccess ||
-      (err = allow_smem(dq, dq_smem, ready[1])) != cudaSuccess)
-    return err;
   const int64_t threads = static_cast<int64_t>(p.B) * p.H * p.Sq * CH;
   fa_bwd_delta<T, DH><<<static_cast<unsigned>((threads + NT - 1) / NT), NT,
                         0, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int n_kt = (p.Sk + BK - 1) / BK, n_qt = (p.Sq + BQ - 1) / BQ;
-  dkdv<<<dim3(p.KV, p.B, n_kt), threads_a_block, dkdv_smem, st>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq<<<dim3(p.H, p.B, n_qt), threads_a_block, dq_smem, st>>>(p);
   return cudaGetLastError();
 }
 
-// bf16 runs the tensor-core kernels, fp32 the CUDA-core ones.
-template <typename T, int DH>
-cudaError_t launch(const BwdParams& p, cudaStream_t st) {
+// fp32: D, then the CUDA-core dK/dV and dQ kernels.
+template <int DH>
+cudaError_t launch_fp32(const BwdParams& p, cudaStream_t st) {
   static bool ready[2] = {false, false};
-  if constexpr (sizeof(T) == 2)
-    return launch_three<T, DH>(p, st, fa_bwd_dkdv_mma<DH>,
-                               mma_smem_bytes<DH>(), fa_bwd_dq_mma<DH>,
-                               mma_smem_bytes<DH>(), MNT, ready);
-  else
-    return launch_three<T, DH>(p, st, fa_bwd_dkdv<T, DH>,
-                               dkdv_smem_bytes<DH>(), fa_bwd_dq<T, DH>,
-                               dq_smem_bytes<DH>(), NT, ready);
+  cudaError_t err;
+  if ((err = allow_smem(fa_bwd_dkdv<float, DH>, dkdv_smem_bytes<DH>(),
+                        ready[0])) != cudaSuccess ||
+      (err = allow_smem(fa_bwd_dq<float, DH>, dq_smem_bytes<DH>(),
+                        ready[1])) != cudaSuccess ||
+      (err = launch_delta<float, DH>(p, st)) != cudaSuccess)
+    return err;
+  const int n_kt = (p.Sk + BK - 1) / BK, n_qt = (p.Sq + BQ - 1) / BQ;
+  fa_bwd_dkdv<float, DH><<<dim3(p.KV, p.B, n_kt), NT, dkdv_smem_bytes<DH>(),
+                           st>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fa_bwd_dq<float, DH><<<dim3(p.H, p.B, n_qt), NT, dq_smem_bytes<DH>(), st>>>(
+      p);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dh(const BwdParams& p, int DH, cudaStream_t st) {
-  switch (DH) {
-    case 16: return launch<T, 16>(p, st);
-    case 32: return launch<T, 32>(p, st);
-    case 64: return launch<T, 64>(p, st);
-    case 128: return launch<T, 128>(p, st);
-    default: return cudaErrorInvalidValue;
-  }
+// bf16: D, then the wgmma dK/dV and dQ kernels over TMA maps of q, k, v
+// and dO.
+template <int DH>
+cudaError_t launch_bf16(const BwdParams& p, cudaStream_t st) {
+  constexpr size_t smem = wg_bwd_smem_bytes<DH>();
+  static bool ready[2] = {false, false};
+  cudaError_t err;
+  if ((err = allow_smem(fa_bwd_dkdv_bf16<DH>, smem,
+                        ready[0])) != cudaSuccess ||
+      (err = allow_smem(fa_bwd_dq_bf16<DH>, smem,
+                        ready[1])) != cudaSuccess)
+    return err;
+  CUtensorMap tq, tk, tv, tdo;
+  Slots sq, sk, sv, sdo;
+  if ((err = make_map<DH>(&tq, &sq, p.q, p.Sq, p.H, p.B, p.q_ss, p.q_sh,
+                          p.q_sb)) != cudaSuccess ||
+      (err = make_map<DH>(&tk, &sk, p.k, p.Sk, p.KV, p.B, p.k_ss, p.k_sh,
+                          p.k_sb)) != cudaSuccess ||
+      (err = make_map<DH>(&tv, &sv, p.v, p.Sk, p.KV, p.B, p.v_ss, p.v_sh,
+                          p.v_sb)) != cudaSuccess ||
+      (err = make_map<DH>(&tdo, &sdo, p.dout, p.Sq, p.H, p.B, p.do_ss,
+                          p.do_sh, p.do_sb)) != cudaSuccess ||
+      (err = launch_delta<bf16, DH>(p, st)) != cudaSuccess)
+    return err;
+  const int n_kt = (p.Sk + WROWS - 1) / WROWS;
+  const int n_qt = (p.Sq + WROWS - 1) / WROWS;
+  fa_bwd_dkdv_bf16<DH><<<dim3(p.KV, p.B, n_kt), WNT, smem,
+                                        st>>>(tq, tk, tv, tdo, p, sq, sk, sv,
+                                              sdo);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  fa_bwd_dq_bf16<DH><<<dim3(p.H, p.B, n_qt), WNT, smem, st>>>(
+      tq, tk, tv, tdo, p, sq, sk, sv, sdo);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch(const BwdParams& p, int dtype, cudaStream_t st) {
+  if (dtype == 0) return launch_fp32<DH>(p, st);
+  if (dtype == 1) return launch_bf16<DH>(p, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -803,24 +976,28 @@ extern "C" int flash_attention_bwd(
                     dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale,
                     causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dh<float>(p, DH, st);
-  if (dtype == 1) return launch_dh<bf16>(p, DH, st);
-  return cudaErrorInvalidValue;
+  switch (DH) {
+    case 16: return launch<16>(p, dtype, st);
+    case 32: return launch<32>(p, dtype, st);
+    case 64: return launch<64>(p, dtype, st);
+    case 128: return launch<128>(p, dtype, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The dynamic shared memory of one block of the fp32 dK/dV and dQ kernels
 // (which = 0, 1) and of either bf16 kernel (which = 2) at head size DH; 0
 // when there is no such instantiation.
 extern "C" int flash_attention_bwd_smem_bytes(int which, int DH) {
-  auto pick = [&](size_t dkdv, size_t dq, size_t mma) {
+  auto pick = [&](size_t dkdv, size_t dq, size_t wg) {
     return static_cast<int>(which == 0 ? dkdv : which == 1 ? dq
-                            : which == 2 ? mma : 0);
+                            : which == 2 ? wg : 0);
   };
   switch (DH) {
-    case 16: return pick(dkdv_smem_bytes<16>(), dq_smem_bytes<16>(), mma_smem_bytes<16>());
-    case 32: return pick(dkdv_smem_bytes<32>(), dq_smem_bytes<32>(), mma_smem_bytes<32>());
-    case 64: return pick(dkdv_smem_bytes<64>(), dq_smem_bytes<64>(), mma_smem_bytes<64>());
-    case 128: return pick(dkdv_smem_bytes<128>(), dq_smem_bytes<128>(), mma_smem_bytes<128>());
+    case 16: return pick(dkdv_smem_bytes<16>(), dq_smem_bytes<16>(), wg_bwd_smem_bytes<16>());
+    case 32: return pick(dkdv_smem_bytes<32>(), dq_smem_bytes<32>(), wg_bwd_smem_bytes<32>());
+    case 64: return pick(dkdv_smem_bytes<64>(), dq_smem_bytes<64>(), wg_bwd_smem_bytes<64>());
+    case 128: return pick(dkdv_smem_bytes<128>(), dq_smem_bytes<128>(), wg_bwd_smem_bytes<128>());
     default: return 0;
   }
 }

@@ -15,7 +15,7 @@ import os
 import re
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -66,6 +66,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         for name, (proc, tmp, out) in jobs.items():
             logs[name] = proc.communicate()[0]
             if proc.returncode == 0:
+                out.with_suffix(".log").write_text(logs[name])
                 os.replace(tmp, out)
             else:
                 failed.append(f"nvcc failed on {name}.cu:\n{logs[name]}")
@@ -79,10 +80,33 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
                 proc.wait()
 
 
-def tensor_core_counts(name: str) -> Dict[str, int]:
+def ptxas_log(name: str) -> str:
+    """The ``-Xptxas -v`` report of the built ``csrc/<name>.cu``, kept
+    beside the library when it was compiled.  Builds the source first."""
+    build((name,))
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def ptxas_report(name: str) -> Dict[str, Tuple[int, int]]:
+    """(registers, bytes of spill stores) of each entry function of the
+    built ``csrc/<name>.cu``, by mangled name, from its ptxas report."""
+    rows, fn, spill = {}, None, 0
+    for line in ptxas_log(name).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and fn:
+            rows[fn] = (int(line.split("Used")[1].split("registers")[0]), spill)
+            fn = None
+    return rows
+
+
+def tensor_core_kinds(name: str) -> Dict[str, Dict[str, int]]:
     """For each entry function of the built ``csrc/<name>.cu``, by mangled
-    name: how many tensor-core instructions (``HMMA``, ``HGMMA``) its SASS
-    holds, as ``cuobjdump -sass`` prints it.  Builds the source first."""
+    name: how many ``HMMA`` (``mma.sync``) and ``HGMMA`` (``wgmma``)
+    instructions its SASS holds, as ``cuobjdump -sass`` prints it.  Builds
+    the source first."""
     build((name,))
     sass = subprocess.run([_tool("cuobjdump"), "-sass", str(library_path(name))],
                           capture_output=True, text=True, check=True).stdout
@@ -91,10 +115,17 @@ def tensor_core_counts(name: str) -> Dict[str, int]:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m[1]
-            counts[fn] = 0
-        elif fn and re.search(r"\bHG?MMA\.", line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn and (m := re.search(r"\b(HG?MMA)\.", line)):
+            counts[fn][m[1]] += 1
     return counts
+
+
+def tensor_core_counts(name: str) -> Dict[str, int]:
+    """For each entry function of the built ``csrc/<name>.cu``, by mangled
+    name: how many tensor-core instructions (``HMMA`` and ``HGMMA``) its
+    SASS holds."""
+    return {fn: sum(n.values()) for fn, n in tensor_core_kinds(name).items()}
 
 
 @functools.cache

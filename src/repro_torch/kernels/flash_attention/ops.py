@@ -117,7 +117,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
 
     On CUDA tensors it launches the kernels (three a call: D = rowsum(dO
     O), dK/dV, dQ) or raises; ``flash_attention_bwd.launches`` counts the
-    calls."""
+    calls.  With no query row (S = 0) it launches nothing and returns zero
+    dk and dv, as the plain version does."""
     _check_shapes(q, k, v)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout "
@@ -136,9 +137,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
             lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be the forward's "
                          "contiguous (B, H, S) float32 log-sum-exp")
+    # with no query row there is nothing to launch, and dK and dV are 0
+    alloc = torch.empty if b * s else torch.zeros
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    dk = alloc(k.shape, dtype=k.dtype, device=q.device)
+    dv = alloc(v.shape, dtype=v.dtype, device=q.device)
     _on_card(q, (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout),
                  ("dq", dq), ("dk", dk), ("dv", dv)), "flash_attention_bwd")
     if lse.device != q.device:

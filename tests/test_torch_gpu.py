@@ -43,7 +43,8 @@ from repro_torch.kernels.decode_attention.emulate import \
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.emulate import attention_bf16_emulated
+from repro_torch.kernels.flash_attention.emulate import (
+    attention_bf16_emulated, attention_bwd_bf16_emulated)
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 from repro_torch.kernels.gbt_hist import ops as gh_ops
@@ -1293,17 +1294,32 @@ def test_rmsnorm_bwd_kernel(cuda, shape, dtype, fused):
     assert torch.equal(dx, again[0]) and torch.equal(dscale, again[1])
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal", [
+# (B, Sq, Sk, H, KV, Dh, causal) of K2's backward: the first eight since
+# the kernel was written; then the edges of its 128-row blocks and 64-row
+# streamed tiles: one query row (causal and against 70 keys), fewer than 64
+# keys, lengths off both multiples, G 4 and G 7 (internvl2's 14/2 heads),
+# Dh 16 and 32, and a call with no query row (S 0), whose dK and dV are 0
+BWD_CASES = [
     (1, 128, 128, 4, 4, 64, True), (2, 256, 256, 8, 2, 128, True),
     (2, 65, 65, 4, 2, 16, True), (1, 129, 129, 6, 2, 32, False),
     (2, 1000, 1000, 8, 8, 64, False), (2, 100, 300, 4, 4, 64, False),
-    (1, 300, 100, 4, 2, 128, True), (1, 512, 1500, 16, 16, 64, False)])
+    (1, 300, 100, 4, 2, 128, True), (1, 512, 1500, 16, 16, 64, False),
+    (2, 1, 1, 4, 1, 64, True), (1, 1, 70, 4, 2, 128, False),
+    (2, 40, 50, 8, 2, 128, True), (1, 200, 333, 14, 2, 64, True),
+    (1, 333, 200, 8, 2, 32, False), (2, 190, 190, 14, 2, 64, True),
+    (1, 300, 300, 16, 4, 128, True), (1, 77, 77, 4, 1, 16, False),
+    (2, 0, 20, 4, 2, 64, True), (1, 0, 130, 14, 2, 128, False)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal", BWD_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_bwd_kernel(cuda, b, sq, sk, h, kv, dh, causal,
                                     dtype):
     """K2's backward (dq, dk, dv) against its plain version, from the
     forward's output and LSE (the LSE against the plain one), bit-equal
-    over two runs; also through autograd on q, k, v."""
+    over two runs; also through autograd on q, k, v.  With no query row
+    the call launches nothing and dK and dV are zeros, not the stale
+    contents of reused memory (the allocator is handed NaN first)."""
     gen = torch.Generator(cuda).manual_seed(12)
     q = _randn(gen, (b, sq, h, dh), dtype, cuda)
     k, v = (_randn(gen, (b, sk, kv, dh), dtype, cuda) for _ in range(2))
@@ -1313,10 +1329,17 @@ def test_flash_attention_bwd_kernel(cuda, b, sq, sk, h, kv, dh, causal,
     torch.testing.assert_close(
         lse, attention_ref(*hm[:3], causal=causal, return_lse=True)[1],
         **_tol(dtype))
+    stale = torch.full((4 * k.numel(),), float("nan"), dtype=dtype,
+                       device=cuda)
+    del stale
     n = fa_ops.flash_attention_bwd.launches
     got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention_bwd.launches == n + 1
+    assert fa_ops.flash_attention_bwd.launches == n + (sq > 0)
+    if sq == 0:
+        assert got[0].shape == q.shape
+        assert all(torch.equal(g, torch.zeros_like(t))
+                   for g, t in zip(got[1:], (k, v)))
     want = attention_bwd_ref(*hm, causal=causal)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w.transpose(1, 2), **_tol(dtype))
@@ -1326,6 +1349,52 @@ def test_flash_attention_bwd_kernel(cuda, b, sq, sk, h, kv, dh, causal,
     fa_ops.flash_attention(*leaves, causal=causal).backward(dout)
     for leaf, g in zip(leaves, got):
         assert torch.equal(leaf.grad, g)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal", [
+    (2, 256, 256, 8, 2, 128, True), (1, 300, 300, 8, 2, 128, True),
+    (2, 190, 190, 14, 2, 64, True), (1, 333, 200, 8, 2, 32, False),
+    (2, 100, 300, 4, 4, 64, False), (1, 77, 77, 4, 1, 16, False),
+    (1, 1, 70, 4, 2, 128, False)])
+def test_flash_attention_bwd_bf16_kernel_matches_its_emulation(
+        cuda, b, sq, sk, h, kv, dh, causal):
+    """K2's bf16 backward against ``attention_bwd_bf16_emulated``, its
+    rounding points in plain torch, computed on the card in fp32 from the
+    same inputs and LSE (``test_torch_attention_bwd_emulated.py`` holds
+    that emulation to JAX's gradient of ``_sdpa``): within one bf16 ulp
+    (floored at 1/16, as the forward's check) but for at most 0.1% of the
+    elements, which stay within 8.  The kernel's ex2.approx and its fp32
+    sums' order flip the bf16 rounding of a few P or dS elements, each
+    moving its sums by an ulp of that term, and a sum that cancels (dS
+    sums to 0 over a row) makes that several ulps of the result; the
+    first case, B 2, S 256, G 4, Dh 128, shows it."""
+    gen = torch.Generator(cuda).manual_seed(13)
+    q = _randn(gen, (b, sq, h, dh), torch.bfloat16, cuda)
+    k, v = (_randn(gen, (b, sk, kv, dh), torch.bfloat16, cuda)
+            for _ in range(2))
+    dout = _randn(gen, (b, sq, h, dh), torch.bfloat16, cuda)
+    out, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    want = attention_bwd_bf16_emulated(q, k, v, out, lse, dout,
+                                       causal=causal)
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs() / _bf16_ulp(w)
+        assert err.max() <= 8, f"{err.max():.3g} ulp"
+        assert (err > 1).float().mean() <= 1e-3, \
+            f"{(err > 1).float().mean():.3g} of the elements beyond one ulp"
+
+
+def test_flash_attention_bwd_bf16_kernels_use_wgmma_without_spills(cuda):
+    """Every bf16 instantiation of K2's dK/dV and dQ kernels holds HGMMA
+    (wgmma) instructions in its SASS (``cuobjdump -sass`` of the built
+    library) and spills no register (its ptxas report)."""
+    from repro_torch.kernels import _build
+    kinds = _build.tensor_core_kinds("flash_attention_bwd")
+    report = _build.ptxas_report("flash_attention_bwd")
+    bf16 = [k for k in kinds if "_bf16" in k]
+    assert len(bf16) == 2 * len(_build.HEAD_DIMS), sorted(kinds)
+    assert all(kinds[k]["HGMMA"] > 0 for k in bf16), kinds
+    assert all(report[k][1] == 0 for k in bf16), report
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-medium"])

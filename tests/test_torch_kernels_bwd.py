@@ -250,3 +250,20 @@ def test_flash_attention_bwd_wrapper_checks_shapes():
         fa_ops.flash_attention_bwd(q, q, q, q[:, :3], None, q)
     with pytest.raises(ValueError, match="not \\(B, S\\|Sk"):
         fa_ops.flash_attention_bwd(q, q[..., :8], q, q, None, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_without_query_rows_gives_zero_dk_dv(dtype):
+    """S = 0 with Sk >= 1, which the wrapper accepts: dq is empty, and dk
+    and dv are zeros of k's and v's shape (the card's path allocates them
+    zeroed and launches nothing), not uninitialised memory."""
+    rng = np.random.default_rng(7)
+    q = torch.zeros(2, 0, 4, 16, dtype=dtype)
+    k, v = (torch.from_numpy(_rand(rng, 2, 5, 2, 16)).to(dtype)
+            for _ in range(2))
+    dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, q, None, q)
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    assert torch.equal(dk, torch.zeros_like(k))
+    assert torch.equal(dv, torch.zeros_like(v))
+    assert fa_ops.flash_attention_bwd.launches == 0
