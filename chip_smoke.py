@@ -227,7 +227,20 @@ Phases, each printing its own lines:
     step's device ms by kind (GEMM, K2 forward and backward, K1 forward
     and backward, the cross entropy and the optimizer by their profiler
     ranges, other); (d) the reference's restart drill at (b)'s cut;
-19. the kernel table as one JSON line (``main_path`` false for
+19. the sharding policy (``distributed/``, ``launch/``) on a one-rank
+    NCCL group (a ``FileStore`` in a temporary directory, no TCP port)
+    and the (1, 1) ("data", "model") mesh: (a) llama3.1-8b whole in bf16,
+    a prefill (B 8, S 512) through ``build_prefill_step`` and 8 eager
+    decode steps through ``build_serve_step`` (serving, 2D weights), the
+    logits bit for bit equal to the policy-free ``Model.prefill`` /
+    ``decode_step``, K1-K3 launching exactly as often, every parameter a
+    DTensor at ``tree_shardings``' placements; (b) qwen3-0.6b whole
+    through ``Trainer.run`` (S 4,096, B 4, 3 steps, no checkpoint) under
+    a ZeRO-1 policy and without one, from the same seed: losses and
+    parameters bit for bit, launches equal; the policy and policy-free
+    ms of the prefill, a decode step and a training step, and peak
+    memory, printed (records, not gates); the group destroyed;
+20. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
 
@@ -3711,6 +3724,242 @@ def training_phase(smi):
     return ok, launches, timings
 
 
+# phase [19], the sharding policy path on a one-rank NCCL group: serving
+# llama3.1-8b whole through the launch steps, training qwen3-0.6b whole
+# under ZeRO-1, each bit for bit against the policy-free run
+POLICY_PREFILL = (8, 512)            # B, S
+POLICY_DECODE_STEPS = 8
+POLICY_TRAIN = (4096, 4, 3)          # S, B, steps
+
+
+def _kernel_counters():
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    return (rms_ops.rmsnorm, rms_ops.add_rmsnorm, rms_ops.rmsnorm_bwd,
+            fa_ops.flash_attention, fa_ops.flash_attention_bwd,
+            da_ops.decode_attention)
+
+
+def _counted(fn):
+    """(fn's result, the K1-K3 launches it made, its seconds), the card
+    synchronised on both sides."""
+    counters = _kernel_counters()
+    before = [c.launches for c in counters]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return out, {c.__name__: c.launches - b
+                 for c, b in zip(counters, before)}, sec
+
+
+def _whole(t):
+    from repro_torch.distributed.compat import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def policy_serve(mesh, smi):
+    """llama3.1-8b whole in bf16: a prefill (B 8, S 512) and eager decode
+    steps, policy-free and through ``build_prefill_step`` /
+    ``build_serve_step`` under a serving policy (2D weights) on the (1, 1)
+    mesh.  Returns (ok, launches of the policy calls, lines)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.compat import DTensor
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, sharded_step)
+    from repro_torch.models.transformer import Model
+    b, s = POLICY_PREFILL
+    steps = POLICY_DECODE_STEPS
+    cfg = get_config(ARCH)
+    gen = torch.Generator("cuda").manual_seed(19)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg).init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    nxt = torch.randint(0, cfg.vocab_size, (steps, b, 1), generator=gen,
+                        device="cuda")
+    t_len = s + steps
+    # policy-free: the prefill (timed at its second call, as the policy's),
+    # then decode steps on a cache of t_len
+    (lg0, _), free_pre, _ = _counted(lambda: model.prefill(toks, max_len=s))
+    _, _, free_pre_s = _counted(lambda: model.prefill(toks, max_len=s))
+    cache = model.init_cache(b, t_len)
+    model.prefill(toks, cache=cache)
+    spare = type(cache)(*cache)._replace(blocks=tuple(
+        type(st)(*(t.clone() for t in st)) for st in cache.blocks),
+        pos_t=cache.pos_t.clone())
+    free_dec, free_steps = [], []
+    for i in range(steps):
+        (lg, cache), n, sec = _counted(
+            lambda: model.decode_step(cache, nxt[i]))
+        free_dec.append(lg)
+        free_steps.append(sec)
+    free_dec_n = n
+    # the policy: every parameter placed by tree_shardings
+    policy = ShardingPolicy(mesh, serving=True)
+    pre, pre_in, pre_out, _ = build_prefill_step(
+        model, policy, ShapeSpec("prefill", s, b, "prefill"))
+    srv, srv_in, srv_out, _ = build_serve_step(
+        model, policy, ShapeSpec("decode", t_len, b, "decode"))
+    run_pre = sharded_step(policy, pre, pre_in, pre_out)
+    run_srv = sharded_step(policy, srv, srv_in, srv_out)
+    (lg1, cache1), pol_pre, _ = _counted(
+        lambda: run_pre(dict(model.named_parameters()), {"tokens": toks}))
+    params = dict(model.named_parameters())
+    placed = all(isinstance(p, DTensor) and tuple(p.placements)
+                 == pre_in[0][k].placements for k, p in params.items())
+    same_pre = torch.equal(_whole(lg1), lg0)
+    _, _, pol_pre_s = _counted(
+        lambda: run_pre(params, {"tokens": toks}))
+    dec_same, pol_steps = [], []
+    state = {"cache": spare}
+    for i in range(steps):
+        (lg, state["cache"]), n, sec = _counted(
+            lambda: run_srv(params, state["cache"], nxt[i]))
+        dec_same.append(torch.equal(_whole(lg), free_dec[i]))
+        pol_steps.append(sec)
+    pol_dec_n = n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counts_ok = pol_pre == free_pre and pol_dec_n == free_dec_n and all(
+        free_pre[k] > 0 for k in ("rmsnorm", "add_rmsnorm",
+                                  "flash_attention")) and \
+        free_dec_n["decode_attention"] > 0
+    ok = same_pre and all(dec_same) and counts_ok and placed
+    med = lambda xs: 1e3 * float(np.median(xs[1:]))
+    lines = [
+        f"[19] (a) {ARCH} whole, bf16, prefill B {b} S {s}: policy-free "
+        f"{1e3 * free_pre_s:.1f} ms, through build_prefill_step "
+        f"{1e3 * pol_pre_s:.1f} ms (second call); {steps} eager decode steps "
+        f"from pos {s}: median after the first {med(free_steps):.2f} ms "
+        f"policy-free, {med(pol_steps):.2f} ms through build_serve_step; "
+        f"peak {peak:.2f} GB allocated [{smi}]",
+        f"[19] (a) logits bit for bit: prefill {same_pre}, decode "
+        f"{sum(dec_same)} of {steps}; every parameter a DTensor at "
+        f"tree_shardings' placements: {placed}; launches a prefill "
+        f"{pol_pre} (policy-free {free_pre}), a step {pol_dec_n} "
+        f"(policy-free {free_dec_n}): {'ok' if ok else 'FAIL'}"]
+    launches = {k: pol_pre.get(k, 0) + pol_dec_n.get(k, 0) for k in pol_pre}
+    del model, params, cache, cache1, spare, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, launches, lines
+
+
+def policy_train(mesh, smi):
+    """qwen3-0.6b whole through ``Trainer.run`` (S 4,096, B 4, 3 steps),
+    policy-free and under a ZeRO-1 policy on the (1, 1) mesh, from the
+    same seed: losses and parameters bit for bit, launches equal.
+    Returns (ok, launches of the policy run, lines)."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.compat import DTensor
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+    seq, batch, steps = POLICY_TRAIN
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("train_4k", seq, batch, "train")
+    runs = {}
+    for name, policy in (("policy-free", None),
+                         ("ZeRO-1", ShardingPolicy(mesh))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(Model(cfg), shape, policy, TrainConfig(
+                total_steps=steps, ckpt_every=10 ** 9, ckpt_dir=tmp,
+                log_every=10 ** 9, opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                   total_steps=steps)))
+            save = train_loop.ckpt.save_checkpoint
+            # the final 7 GB checkpoint is phase [18]'s; not written here
+            train_loop.ckpt.save_checkpoint = lambda *a, **kw: None
+            try:
+                (params, opt), n, _ = _counted(lambda: trainer.run(seed=0))
+            finally:
+                train_loop.ckpt.save_checkpoint = save
+        runs[name] = dict(
+            loss=[h["loss"] for h in trainer.history],
+            gnorm=[h["grad_norm"] for h in trainer.history],
+            ms=1e3 * float(np.median([h["sec"] for h in
+                                      trainer.history[1:]])),
+            peak=torch.cuda.max_memory_allocated() / 1e9, launches=n,
+            dtensor=all(isinstance(p, DTensor) for p in params.values()),
+            zero=all(isinstance(m, DTensor) for m in opt.m.values()),
+            params={k: _whole(p).detach().clone() for k, p in params.items()})
+        del trainer, params, opt
+        gc.collect()
+    free, pol = runs["policy-free"], runs["ZeRO-1"]
+    same_loss = free["loss"] == pol["loss"]
+    differ = {k: float((free["params"][k] - pol["params"][k]).abs().max())
+              for k in free["params"]
+              if not torch.equal(free["params"][k], pol["params"][k])}
+    same_params = not differ
+    counts_ok = free["launches"] == pol["launches"] and all(
+        pol["launches"][k] > 0 for k in ("rmsnorm", "add_rmsnorm",
+                                          "rmsnorm_bwd", "flash_attention",
+                                          "flash_attention_bwd"))
+    ok = same_loss and same_params and counts_ok and pol["dtensor"] and \
+        pol["zero"]
+    lines = [
+        f"[19] (b) {TRAIN_ARCH} whole, S {seq} B {batch}, {steps} steps: "
+        f"step ms (median after the first) policy-free {free['ms']:.1f}, "
+        f"ZeRO-1 policy {pol['ms']:.1f}; peak {free['peak']:.2f} and "
+        f"{pol['peak']:.2f} GB allocated [{smi}]",
+        f"[19] (b) losses {free['loss']} and {pol['loss']}: bit for bit "
+        f"{same_loss}; grad norms {free['gnorm']} and {pol['gnorm']}; "
+        f"parameters bit for bit {same_params}"
+        + (f" ({len(differ)} differ, the most by "
+           f"{max(differ.values()):.3g}: "
+           f"{sorted(differ, key=differ.get)[-4:]})" if differ else "")
+        + f"; parameters and "
+        f"moments DTensors {pol['dtensor'] and pol['zero']}; launches "
+        f"{pol['launches']} (policy-free {free['launches']}): "
+        f"{'ok' if ok else 'FAIL'}"]
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, pol["launches"], lines
+
+
+def policy_phase(smi):
+    """Phase [19]: a one-rank NCCL group from a ``FileStore`` in a
+    temporary directory (no TCP port), the (1, 1) ("data", "model") mesh,
+    (a) serving and (b) training through the sharding policy, the group
+    destroyed at the end.  Returns (ok, launches of the policy calls)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.distributed.compat import init_device_mesh
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            for c in _kernel_counters():
+                c.launches = 0
+            ok_a, grew_a, lines = policy_serve(mesh, smi)
+            print("\n".join(lines))
+            ok_b, grew_b, lines = policy_train(mesh, smi)
+            print("\n".join(lines))
+        finally:
+            dist.destroy_process_group()
+    launches = {k: grew_a.get(k, 0) + grew_b.get(k, 0)
+                for k in set(grew_a) | set(grew_b)}
+    print(f"[19] checks: (a) serving {'ok' if ok_a else 'FAIL'}, (b) "
+          f"training {'ok' if ok_b else 'FAIL'}; launches through the "
+          f"policy {launches} ({time.perf_counter() - t0:.1f} s)")
+    return ok_a and ok_b, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; it runs only on a GPU",
@@ -4191,7 +4440,17 @@ def main() -> int:
     print(f"[18] training: {'ok' if ok18 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    # -- 19. result -----------------------------------------------------------
+    # -- 19. the sharding policy path: serving and training through the
+    # launch steps on a one-rank mesh, bit for bit against the policy-free
+    # calls ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    ok19, grew = policy_phase(smi)
+    for k, n in grew.items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"[19] sharding policy: {'ok' if ok19 else 'FAIL'} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 20. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm/kernel.py:24"),
                "add_rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -4238,11 +4497,11 @@ def main() -> int:
               "[14] MoE and recurrent blocks": ok14,
               "[15] encoder-decoder and vision": ok15,
               "[16] serving stack": ok16, "[17] observability": ok17,
-              "[18] training": ok18,
-              "[19] launches": all(
+              "[18] training": ok18, "[19] sharding policy": ok19,
+              "[20] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())
-    print(f"[19] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
+    print(f"[20] phases: " + ", ".join(f"{k} {v}" for k, v in phases.items())
           + f"; {time.perf_counter() - t_start:.0f} s in all")
     if not ok:
         failed = [name for name, good in phases.items() if not good]

@@ -10,6 +10,7 @@ import operator
 
 import torch
 
+from repro_torch.distributed.local import is_sharded, on_heads
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.kernel import (cluster_size,
                                                         decode_attention_bhd,
@@ -28,7 +29,11 @@ def decode_attention(q, k, v, pos, scale: float | None = None):
     finds at each replay; a position past the cache is clamped to its end
     there (an int is checked here).  The positions are cut into the splits
     of ``kernel.split_plan``, which run as one cluster of blocks and merge
-    in its shared memory.  ``decode_attention.launches`` counts calls."""
+    in its shared memory.  ``decode_attention.launches`` counts calls.  On
+    DTensors it runs on each rank's batch rows and KV heads, T gathered
+    (``distributed.local.on_heads``)."""
+    if is_sharded(q, k, v):
+        return on_heads(decode_attention, q, k, v, pos, scale=scale)
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"expected q (B, H, Dh), k/v (B, T, KV, Dh); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")

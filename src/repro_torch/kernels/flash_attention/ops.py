@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.local import is_sharded, on_heads
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bshd, flash_attention_bwd_bshd)
@@ -87,8 +88,13 @@ def flash_attention(q, k, v, causal: bool = True,
     i attends to keys 0..i, whatever Sk is.
 
     On CUDA tensors it launches the kernel or raises;
-    ``flash_attention.launches`` counts the launches."""
+    ``flash_attention.launches`` counts the launches.  On DTensors it runs
+    on each rank's batch rows and heads, the sequence gathered
+    (``distributed.local.on_heads``)."""
     _check_shapes(q, k, v)
+    if is_sharded(q, k, v):
+        return on_heads(flash_attention, q, k, v, causal=causal,
+                        scale=scale)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, scale)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.local import is_sharded, on_rows
 from repro_torch.kernels import _build
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_rows, rmsnorm_rows
 from repro_torch.kernels.rmsnorm.ref import (add_rmsnorm_bwd_ref,
@@ -105,7 +106,10 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     """RMSNorm over the last dim of an arbitrarily-shaped ``x``.
 
     On CUDA tensors it launches the kernel or raises; ``rmsnorm.launches``
-    counts the launches."""
+    counts the launches.  On a DTensor it runs on each rank's rows, the
+    last dim gathered (``distributed.local.on_rows``)."""
+    if is_sharded(x):
+        return on_rows(rmsnorm, (x,), scale, eps)
     if _wants_grad(x, scale):
         return _RMSNorm.apply(x, scale, eps)
     return _rmsnorm_fwd(x, scale, eps)
@@ -118,7 +122,10 @@ def add_rmsnorm(x, r, scale, eps: float = 1e-5):
     rounded ``s``.  ``s`` is a new tensor; ``x`` and ``r`` are not written.
 
     On CUDA tensors it launches the kernel or raises;
-    ``add_rmsnorm.launches`` counts the launches."""
+    ``add_rmsnorm.launches`` counts the launches.  On DTensors it runs on
+    each rank's rows, as ``rmsnorm``."""
+    if is_sharded(x, r):
+        return on_rows(add_rmsnorm, (x, r), scale, eps)
     if _wants_grad(x, r, scale):
         return _AddRMSNorm.apply(x, r, scale, eps)
     return _add_rmsnorm_fwd(x, r, scale, eps)

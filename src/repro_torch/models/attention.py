@@ -19,6 +19,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.local import (gathered, matmul, split_ready,
+                                           write_at)
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
@@ -54,9 +57,14 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _project(x, w):
-    """x: (B, S, D); w: (D, heads, Dh) -> (B, S, heads, Dh)."""
+    """x: (B, S, D); w: (D, heads, Dh) -> (B, S, heads, Dh).  A DTensor
+    ``w`` sharded on Dh is gathered on it first, and the product's (heads
+    * Dh) dim kept cut only where the cut divides heads: a view can split
+    a cut dim only so."""
     b, s, d = x.shape
-    return (x @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+    w = gathered(w, (2,))
+    y = split_ready(matmul(x, w.reshape(d, -1)), 2, w.shape[1])
+    return y.view(b, s, w.shape[1], w.shape[2])
 
 
 def _project_q(cfg, params, x):
@@ -80,10 +88,12 @@ def _project_kv(cfg, params, x):
 
 
 def _out_proj(params, out):
-    """out: (B, S, H, Dh) -> (B, S, D)."""
+    """out: (B, S, H, Dh) -> (B, S, D); a DTensor ``wo`` (H, Dh, D) is
+    gathered on Dh, as in ``_project``."""
     b, s = out.shape[:2]
-    wo = params["wo"]
-    return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    wo = gathered(params["wo"], (1,))
+    return matmul(gathered(out, (3,)).reshape(b, s, -1),
+                  wo.reshape(-1, wo.shape[-1]))
 
 
 def attend_full(cfg: ModelConfig, params, x, positions, causal=None):
@@ -93,8 +103,12 @@ def attend_full(cfg: ModelConfig, params, x, positions, causal=None):
     k, v = _project_kv(cfg, params, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "act_qkv")
+    k = constrain(k, "act_kv")
+    v = constrain(v, "act_kv")
     out = fa_ops.flash_attention(q, k, v, causal=causal,
                                  scale=1.0 / (cfg.d_head ** 0.5))
+    out = constrain(out, "act_qkv")
     return _out_proj(params, out), KVCache(k=k, v=v)
 
 
@@ -113,9 +127,10 @@ def attend_decode(cfg: ModelConfig, params, x, cache: KVCache, pos):
     posv = pos_t.expand(b)[:, None]
     q = apply_rope(q, posv, cfg.rope_theta)
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
-    cache.k.index_copy_(1, pos_t, k_new)
-    cache.v.index_copy_(1, pos_t, v_new)
-    out = da_ops.decode_attention(q[:, 0], cache.k, cache.v, pos_t,
+    write_at(cache.k, pos_t, k_new)
+    write_at(cache.v, pos_t, v_new)
+    k, v = constrain(cache.k, "kv_cache"), constrain(cache.v, "kv_cache")
+    out = da_ops.decode_attention(q[:, 0], k, v, pos_t,
                                   scale=1.0 / (cfg.d_head ** 0.5))
     return _out_proj(params, out[:, None]), cache
 

@@ -15,6 +15,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.compat import DTensor, Replicate
+from repro_torch.distributed.local import (local, matmul,
+                                           partial_over_shards,
+                                           row_placements, wrap)
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.config import ModelConfig
 
@@ -30,9 +34,19 @@ def dense_init(generator: torch.Generator, shape, dtype, in_axis: int = 0):
     initialised tensor by tensor peaks near its size in ``dtype``."""
     std = 1.0 / max(shape[in_axis], 1) ** 0.5
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
-                                generator=generator)
+    if t.device.type != "meta":
+        torch.nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std,
+                                    generator=generator)
     return t.to(dtype)
+
+
+class _ShapeOnly:
+    """Stands for a generator where only shapes are wanted: every
+    ``init_*`` puts its tensors on the meta device and draws nothing."""
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = _ShapeOnly()
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +106,9 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator):
 
 
 def mlp(cfg: ModelConfig, params, x):
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    return (F.silu(g) * u) @ params["w_down"]
+    g = matmul(x, params["w_gate"])
+    u = matmul(x, params["w_up"])
+    return matmul(F.silu(g) * u, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -113,12 +127,28 @@ def init_embeddings(cfg: ModelConfig, generator: torch.Generator):
 
 def embed(cfg: ModelConfig, params, tokens):
     # gathered, then cast to the compute dtype (a no-op when it holds it)
-    return params["tok_embed"][tokens].to(cfg.compute_dtype)
+    table = params["tok_embed"]
+    if isinstance(table, DTensor):
+        return _embed_sharded(table, tokens).to(cfg.compute_dtype)
+    return table[tokens].to(cfg.compute_dtype)
+
+
+def _embed_sharded(table, tokens):
+    """The gather of a DTensor ``table``: each rank takes its own tokens'
+    rows from the whole table, by the same indexing as one device (so its
+    gradient adds up in the same order); the table's gradient is then a
+    pending sum over the ranks that hold other tokens."""
+    mesh = table.device_mesh
+    pl = (tokens.placements if isinstance(tokens, DTensor)
+          else (Replicate(),) * mesh.ndim)
+    rows = local(table, mesh, (Replicate(),) * mesh.ndim,
+                 partial_over_shards(pl))[local(tokens, mesh, pl)]
+    return wrap(rows, mesh, pl, (*tokens.shape, table.shape[1]))
 
 
 def lm_logits(cfg: ModelConfig, params, x):
     w = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ w.to(cfg.compute_dtype)
+    return matmul(x, w.to(cfg.compute_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +171,7 @@ class _CrossEntropy(torch.autograd.Function):
 
     @staticmethod
     @torch.profiler.record_function("cross_entropy")
-    def forward(ctx, logits, labels, vocab_size):
+    def forward(ctx, logits, labels, vocab_size, count=None):
         v = logits.shape[-1]
         flat, lab = logits.reshape(-1, v), labels.reshape(-1)
         mask = (lab >= 0) & (lab < vocab_size)
@@ -150,7 +180,8 @@ class _CrossEntropy(torch.autograd.Function):
         lse = torch.cat([torch.logsumexp(flat[i:i + rows].float(), dim=-1)
                          for i in range(0, flat.shape[0], rows)])
         gold = flat.gather(1, safe[:, None])[:, 0].float()
-        count = mask.sum().clamp_min(1)
+        if count is None:
+            count = mask.sum().clamp_min(1)
         ctx.save_for_backward(logits, safe, mask, lse, count)
         return ((lse - gold) * mask).sum() / count
 
@@ -168,11 +199,25 @@ class _CrossEntropy(torch.autograd.Function):
             p = torch.exp(flat[sl].float() - lse[sl, None])
             p[torch.arange(p.shape[0], device=p.device), safe[sl]] -= 1.0
             grad[sl] = (p * weight[sl, None]).to(grad.dtype)
-        return grad.view_as(logits), None, None
+        return grad.view_as(logits), None, None, None
 
 
 def cross_entropy(logits, labels, vocab_size: int):
     """Mean CE in fp32 over the last axis of ``logits`` (the padded
     vocabulary, padding columns included, as the reference computes it);
-    labels < 0 or >= vocab_size (padding) are masked."""
-    return _CrossEntropy.apply(logits, labels, vocab_size)
+    labels < 0 or >= vocab_size (padding) are masked.
+
+    DTensor logits (under a sharding policy): each rank takes its rows
+    with the vocabulary whole (``distributed.local.row_placements``), and
+    the labels alike, and sums its rows' CE over the global count of
+    unmasked labels; the ranks' sums add up to the mean."""
+    if not isinstance(logits, DTensor):
+        return _CrossEntropy.apply(logits, labels, vocab_size)
+    mesh, pl = logits.device_mesh, row_placements(logits)
+    lab = local(labels, mesh, pl)
+    count = wrap(((lab >= 0) & (lab < vocab_size)).sum(), mesh,
+                 partial_over_shards(pl), ()).full_tensor().clamp_min(1)
+    loss = _CrossEntropy.apply(local(logits, mesh, pl), lab, vocab_size,
+                               count)
+    return wrap(loss, mesh, partial_over_shards(pl), ()).redistribute(
+        mesh, (Replicate(),) * mesh.ndim)

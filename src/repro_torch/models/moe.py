@@ -28,6 +28,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.compat import DTensor, Replicate
+from repro_torch.distributed.local import local, wrap
+from repro_torch.distributed.sharding import constrain, get_policy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -85,14 +88,33 @@ def dispatch(cfg: ModelConfig, gate_idx, cap: int):
 
 
 def moe_ffn(cfg: ModelConfig, params, x):
-    """x: (B, S, D) -> ((B, S, D), aux load-balancing loss)."""
+    """x: (B, S, D) -> ((B, S, D), aux load-balancing loss).
+
+    Under a sharding policy with ``ep_moe`` whose model axis the experts
+    divide, the expert-parallel path (``distributed/ep_moe.py``) runs
+    instead, as in the reference.  Otherwise a DTensor ``x`` is routed and
+    dispatched whole on every rank (the replicated dispatch buffer of the
+    reference's GSPMD path), the buffers constrained by ``moe_ecd`` for
+    the expert products, and the result returned replicated."""
+    policy = get_policy()
+    if policy is not None and policy.ep_moe:
+        from repro_torch.distributed.ep_moe import ep_available, moe_ffn_ep
+        if ep_available(cfg, policy, batch=x.shape[0], seq=x.shape[1]):
+            return moe_ffn_ep(cfg, params, x, policy)
+    mesh = x.device_mesh if isinstance(x, DTensor) else None
+    if mesh is not None:
+        whole = (Replicate(),) * mesh.ndim
+        x = local(x, mesh, whole)
+        router = local(params["router"], mesh, whole)
+    else:
+        router = params["router"]
     b, s, d = x.shape
     n_tokens = b * s
     e = cfg.n_experts
     cap = expert_capacity(cfg, n_tokens)
     dtype = cfg.compute_dtype
     xt = x.reshape(n_tokens, d)
-    probs, gate_vals, gate_idx = route(cfg, params["router"], xt)
+    probs, gate_vals, gate_idx = route(cfg, router, xt)
 
     # Switch-style load balancing; the first choice's share a count exact
     # in float32, as the mean of a one-hot
@@ -106,13 +128,21 @@ def moe_ffn(cfg: ModelConfig, params, x):
     buf = torch.zeros((e * cap, d), dtype=dtype, device=x.device)
     buf.index_add_(0, slot, gathered)
     buf = buf.view(e, cap, d)
+    if mesh is not None:
+        buf = wrap(buf, mesh, whole, buf.shape)
+    buf = constrain(buf, "moe_ecd")
 
     w = params["experts"]
     h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_up"])
-    out_buf = torch.bmm(h, w["w_down"]).view(e * cap, d)
+    out_buf = constrain(torch.bmm(h, w["w_down"]), "moe_ecd")
+    if mesh is not None:
+        out_buf = local(out_buf, mesh, whole)
+    out_buf = out_buf.view(e * cap, d)
 
     # combine back, the gate cast to the compute type before the product
     gate = (gate_vals.reshape(-1)[order] * keep).to(dtype)
     expert_out = out_buf.index_select(0, slot) * gate[:, None]
-    yt = torch.zeros_like(xt).index_add_(0, token, expert_out)
-    return yt.view(b, s, d), aux
+    yt = torch.zeros_like(xt).index_add_(0, token, expert_out).view(b, s, d)
+    if mesh is not None:
+        return wrap(yt, mesh, whole, yt.shape), wrap(aux, mesh, whole, ())
+    return yt, aux

@@ -11,7 +11,11 @@ memory), ``MLSTM_CHUNK`` positions a chunk.  sLSTM is a sequential scan
 Each mixer has a ``*_full`` function (prefill; the state given or zeros,
 returns the output and the final state) and a ``*_decode`` function (one
 token; returns the output and the new state, which the model copies into
-its cache).  They take the mixer's own parameters (``block["mamba"]``,
+its cache).  On a DTensor input each runs on every rank's batch rows with
+its parameters and channels whole (``distributed.local.on_batch``): the
+scans' cumulative sums and (batch, head) folds have no sharding rule in
+the card's torch, and the reference's ``constrain`` points inside them
+meet local tensors there.  They take the mixer's own parameters (``block["mamba"]``,
 ``block["mlstm"]``, ``block["slstm"]``).  Recurrent states are float32,
 Mamba's convolution carry is in the compute dtype; ``A_log``, ``D`` and
 ``dt_bias`` are read in float32, as the reference reads them.
@@ -23,6 +27,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.local import is_sharded, on_batch
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -88,12 +94,16 @@ def _ssm_params(cfg, p, x):
 
 def mamba_full(cfg: ModelConfig, p, xz, state: MambaState = None):
     """Train/prefill path. Returns (y, final MambaState)."""
+    if is_sharded(xz):
+        return on_batch(lambda x, q, st: mamba_full(cfg, q, x, st), xz, p,
+                        state)
     b, s, _ = xz.shape
     dtype = cfg.compute_dtype
     n_chunks = _chunks(s, MAMBA_CHUNK, "mamba")
     x, z = (xz @ p["in_proj"]).chunk(2, dim=-1)
     x, conv_out = _causal_conv(cfg, p, x, None if state is None
                                else state.conv)
+    x = constrain(x, "act_bsi")
     dt, Bc, Cc = _ssm_params(cfg, p, x)
     A = -torch.exp(p["A_log"].float())                   # (di, ds)
     xf = x.float()
@@ -118,6 +128,9 @@ def mamba_full(cfg: ModelConfig, p, xz, state: MambaState = None):
 
 def mamba_decode(cfg: ModelConfig, p, xz, state: MambaState):
     """One-token step. xz: (B, 1, d_model)."""
+    if is_sharded(xz):
+        return on_batch(lambda x, q, st: mamba_decode(cfg, q, x, st), xz, p,
+                        state)
     dtype = cfg.compute_dtype
     dc = cfg.mamba_d_conv
     x, z = (xz @ p["in_proj"]).chunk(2, dim=-1)
@@ -132,6 +145,7 @@ def mamba_decode(cfg: ModelConfig, p, xz, state: MambaState):
     dt0, B0, C0, x0 = dt[:, 0], Bc[:, 0], Cc[:, 0], xc[:, 0].float()
     dA = torch.exp(dt0[..., None] * A)                        # (B,di,ds)
     h = dA * state.ssm + (dt0 * x0)[..., None] * B0[:, None, :]
+    h = constrain(h, "mamba_state")
     y = torch.einsum("bis,bs->bi", h, C0) + x0 * p["D"].float()
     out = (y.to(dtype)[:, None, :] * F.silu(z)) @ p["out_proj"]
     return out, MambaState(conv=new_conv, ssm=h)
@@ -187,6 +201,9 @@ def _mlstm_qkv(cfg, p, xin):
 
 
 def mlstm_full(cfg: ModelConfig, p, x, state: MLSTMState = None):
+    if is_sharded(x):
+        return on_batch(lambda y, q, st: mlstm_full(cfg, q, y, st), x, p,
+                        state)
     dtype = cfg.compute_dtype
     b, s, _ = x.shape
     hn = cfg.n_heads
@@ -236,6 +253,9 @@ def mlstm_full(cfg: ModelConfig, p, x, state: MLSTMState = None):
 
 
 def mlstm_decode(cfg: ModelConfig, p, x, state: MLSTMState):
+    if is_sharded(x):
+        return on_batch(lambda y, q, st: mlstm_decode(cfg, q, y, st), x, p,
+                        state)
     dtype = cfg.compute_dtype
     b = x.shape[0]
     xin, z = (x @ p["up_proj"]).chunk(2, dim=-1)
@@ -245,6 +265,7 @@ def mlstm_decode(cfg: ModelConfig, p, x, state: MLSTMState):
     i0, f0 = i[:, 0], f[:, 0]                  # (B,H)
     C = state.C * f0[..., None, None] + \
         (kf * i0[..., None])[..., :, None] * vf[..., None, :]
+    C = constrain(C, "mlstm_state")
     n = state.n * f0[..., None] + kf * i0[..., None]
     qs = qf * scale
     num = torch.einsum("bhk,bhkv->bhv", qs, C)
@@ -297,6 +318,9 @@ def _slstm_step(r, carry: SLSTMState, wx_t) -> SLSTMState:
 
 
 def slstm_full(cfg: ModelConfig, p, x, state: SLSTMState = None):
+    if is_sharded(x):
+        return on_batch(lambda y, q, st: slstm_full(cfg, q, y, st), x, p,
+                        state)
     dtype = cfg.compute_dtype
     b, s, _ = x.shape
     wx = (x @ p["up_proj"]).float()
@@ -312,6 +336,9 @@ def slstm_full(cfg: ModelConfig, p, x, state: SLSTMState = None):
 
 
 def slstm_decode(cfg: ModelConfig, p, x, state: SLSTMState):
+    if is_sharded(x):
+        return on_batch(lambda y, q, st: slstm_decode(cfg, q, y, st), x, p,
+                        state)
     wx = (x @ p["up_proj"]).float()
     state = _slstm_step(p["r_proj"].float(), state, wx[:, 0])
     return (state.h.to(cfg.compute_dtype) @ p["down_proj"])[:, None], state

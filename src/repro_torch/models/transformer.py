@@ -30,6 +30,12 @@ K/V per decoder layer in ``cross``; it is written in place.  A decode
 step reads its positions from the device (``DecodeCache.pos_t``,
 ``cross_pos_t``) and advances ``pos_t`` there, so the step holds no host
 value and can be captured as a CUDA graph.
+
+Under a sharding policy (``distributed.sharding.use_policy``) the
+parameters, caches and activations are DTensors: ``constrain`` pins them
+at the reference's points, ``init_cache`` allocates each rank's shards,
+the cache writes go through ``distributed.local``, and serving runs under
+``no_grad``; without one nothing of this runs.
 """
 from __future__ import annotations
 
@@ -41,6 +47,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import staterules
+from repro_torch.distributed.local import (assign, gathered, matmul,
+                                           write_prefix)
+from repro_torch.distributed.sharding import constrain, get_policy
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -87,6 +97,18 @@ class DecodeCache(NamedTuple):
             for t in state:
                 t.zero_()
         self.pos_t.zero_()
+
+
+def _serving(fn):
+    """Runs ``fn`` under ``torch.inference_mode``, or, under a sharding
+    policy, under ``torch.no_grad``: a DTensor cannot be viewed as an
+    inference tensor."""
+    @functools.wraps(fn)
+    def serving(*args, **kwargs):
+        with (torch.no_grad() if get_policy() is not None
+              else torch.inference_mode()):
+            return fn(*args, **kwargs)
+    return serving
 
 
 # an encoder layer: attention (not causal) and a dense FFN
@@ -191,6 +213,13 @@ def _residuals(cfg, spec, block, x, out, next_norm, memory=None, pos=None):
     return (*L.add_rmsnorm(x, out, next_norm, cfg.norm_eps), aux)
 
 
+def _block_end(x, h):
+    """The reference's ``constrain(x, "act_btd")`` at the end of a block
+    of a full pass, on both outputs of the fused add and norm: the
+    residual stream and the next block's normed input."""
+    return constrain(x, "act_btd"), constrain(h, "act_btd")
+
+
 def _state_zeros(cfg: ModelConfig, spec: BlockSpec, batch: int,
                  max_len: int, device):
     lead = (cfg.n_periods,)
@@ -213,6 +242,67 @@ def flatten_params(prefix: str, tree: dict) -> dict:
         out.update(flatten_params(name, v) if isinstance(v, dict)
                    else {name: v})
     return out
+
+
+def init_params(cfg: ModelConfig, generator, train: bool = False
+                ) -> Dict[str, torch.Tensor]:
+    """Every parameter drawn from ``generator`` on its device, named as
+    ``Model.load`` takes them; with ``train``, each matrix drawn in
+    ``cfg.param_dtype``."""
+    dev = generator.device
+    if train:  # matrices drawn in the parameter dtype
+        cfg = dataclasses.replace(cfg, compute_dtype=cfg.param_dtype)
+    params = flatten_params("embed", L.init_embeddings(cfg, generator))
+    params.update(flatten_params("final_norm", L.init_rmsnorm(cfg, dev)))
+    for p in range(cfg.n_periods):
+        for i, spec in enumerate(cfg.period):
+            params.update(flatten_params(
+                f"blocks.{p}.{i}",
+                _init_block(cfg, spec, generator, cross=cfg.is_encdec)))
+    if cfg.is_encdec:
+        for n in range(cfg.n_encoder_layers):
+            params.update(flatten_params(
+                f"enc_blocks.{n}", _init_block(cfg, _ENC_SPEC, generator)))
+        params.update(flatten_params("enc_norm", L.init_rmsnorm(cfg, dev)))
+    if cfg.frontend == "vision":
+        params["vis_proj"] = L.dense_init(
+            generator, (cfg.d_model, cfg.d_model), cfg.compute_dtype)
+    return params
+
+
+def param_structs(cfg: ModelConfig, train: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """Every parameter as ``Model.init`` holds it, shape and dtype only:
+    meta tensors, nothing drawn or allocated (the reference's
+    ``jax.eval_shape(model.init, key)``)."""
+    params = init_params(cfg, L.SHAPE_ONLY, train)
+    return {name: t.to(param_dtype(cfg, name, train))
+            for name, t in params.items()}
+
+
+def param_dtype(cfg: ModelConfig, name: str, train: bool) -> torch.dtype:
+    """The dtype ``Model.load`` holds parameter ``name`` in."""
+    key = name.rpartition(".")[2]
+    return (cfg.param_dtype if train or key in _PARAM_DTYPE
+            else cfg.compute_dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               filled: Optional[int], device) -> DecodeCache:
+    """Zeroed states for ``batch`` sequences of ``max_len`` positions on
+    ``device`` (``Model.init_cache``; "meta" for its shapes alone)."""
+    blocks = tuple(_state_zeros(cfg, spec, batch, max_len, device)
+                   for spec in cfg.period)
+    pos = filled or 0
+    cross = cross_pos_t = None
+    if cfg.is_encdec:
+        cross = tuple(_state_zeros(cfg, _ENC_SPEC, batch, cfg.encoder_seq,
+                                   device) for _ in cfg.period)
+        cross_pos_t = torch.full((1,), cfg.encoder_seq - 1,
+                                 dtype=torch.int64, device=device)
+    return DecodeCache(blocks=blocks, pos=pos, pos_t=torch.full(
+        (1,), pos, dtype=torch.int64, device=device), max_len=max_len,
+        cross=cross, cross_pos_t=cross_pos_t)
 
 
 class Model(nn.Module):
@@ -257,26 +347,7 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator, train: bool = False) -> "Model":
         """Draws every parameter from ``generator``, on its device; with
         ``train``, in ``cfg.param_dtype`` (``load(..., train=True)``)."""
-        cfg, dev = self.cfg, generator.device
-        if train:  # matrices drawn in the parameter dtype
-            cfg = dataclasses.replace(cfg, compute_dtype=cfg.param_dtype)
-        params = flatten_params("embed", L.init_embeddings(cfg, generator))
-        params.update(flatten_params("final_norm", L.init_rmsnorm(cfg, dev)))
-        for p in range(cfg.n_periods):
-            for i, spec in enumerate(cfg.period):
-                params.update(flatten_params(
-                    f"blocks.{p}.{i}",
-                    _init_block(cfg, spec, generator, cross=cfg.is_encdec)))
-        if cfg.is_encdec:
-            for n in range(cfg.n_encoder_layers):
-                params.update(flatten_params(
-                    f"enc_blocks.{n}", _init_block(cfg, _ENC_SPEC, generator)))
-            params.update(flatten_params("enc_norm",
-                                         L.init_rmsnorm(cfg, dev)))
-        if cfg.frontend == "vision":
-            params["vis_proj"] = L.dense_init(
-                generator, (cfg.d_model, cfg.d_model), cfg.compute_dtype)
-        return self.load(params, train=train)
+        return self.load(init_params(self.cfg, generator, train), train=train)
 
     def load(self, params: Dict[str, torch.Tensor],
              train: bool = False) -> "Model":
@@ -288,8 +359,7 @@ class Model(nn.Module):
         taken as it is, sharing its storage), each matrix cast at its use."""
         for name, t in params.items():
             path, _, key = name.rpartition(".")
-            dtype = (self.cfg.param_dtype if train or key in _PARAM_DTYPE
-                     else self.cfg.compute_dtype)
+            dtype = param_dtype(self.cfg, name, train)
             param = nn.Parameter(t.detach().to(dtype), requires_grad=train)
             if path:
                 self.get_submodule(path)[key] = param
@@ -319,23 +389,16 @@ class Model(nn.Module):
                    filled: Optional[int] = None) -> DecodeCache:
         """Zeroed states for ``batch`` sequences of ``max_len`` positions,
         ``filled`` of them taken; an encoder-decoder model's cross K/V
-        hold ``cfg.encoder_seq`` positions."""
-        cfg, dev = self.cfg, self.device
-        blocks = tuple(_state_zeros(cfg, spec, batch, max_len, dev)
-                       for spec in cfg.period)
-        pos = filled or 0
-        cross = cross_pos_t = None
-        if cfg.is_encdec:
-            cross = tuple(_state_zeros(cfg, _ENC_SPEC, batch,
-                                       cfg.encoder_seq, dev)
-                          for _ in cfg.period)
-            cross_pos_t = torch.full((1,), cfg.encoder_seq - 1,
-                                     dtype=torch.int64, device=dev)
-        return DecodeCache(blocks=blocks, pos=pos, pos_t=torch.full(
-            (1,), pos, dtype=torch.int64, device=dev), max_len=max_len,
-            cross=cross, cross_pos_t=cross_pos_t)
+        hold ``cfg.encoder_seq`` positions.  Under a sharding policy the
+        states are DTensors at ``staterules.decode_cache_shardings``, each
+        rank holding its shards."""
+        policy = get_policy()
+        if policy is None:
+            return init_cache(self.cfg, batch, max_len, filled, self.device)
+        return staterules.sharded_zeros(
+            policy, init_cache(self.cfg, batch, max_len, filled, "meta"))
 
-    @torch.inference_mode()
+    @_serving
     def encode(self, frames):
         """The encoder stack over ``frames`` (B, T, D): attention not
         causal, RoPE over 0..T-1, as the JAX package's ``encode``; returns
@@ -354,6 +417,7 @@ class Model(nn.Module):
             out, _ = attn.attend_full(cfg, bp["attn"], h, positions,
                                       causal=False)
             x, h, _ = _residuals(cfg, _ENC_SPEC, bp, x, out, norm)
+            x, h = _block_end(x, h)
         return h
 
     def _cross_kv(self, enc_out, cache: DecodeCache) -> None:
@@ -362,8 +426,8 @@ class Model(nn.Module):
         for p, i, _, block, _ in self._layers():
             k, v = attn._project_kv(self.cfg,
                                     self._params(block)["cross_attn"], enc_out)
-            cache.cross[i].k[p].copy_(k)
-            cache.cross[i].v[p].copy_(v)
+            assign(cache.cross[i].k[p], k)
+            assign(cache.cross[i].v[p], v)
 
     @staticmethod
     def _memory(cache: DecodeCache, p: int, i: int):
@@ -373,7 +437,7 @@ class Model(nn.Module):
             return None
         return attn.KVCache(k=cache.cross[i].k[p], v=cache.cross[i].v[p])
 
-    @torch.inference_mode()
+    @_serving
     def prefill(self, tokens, max_len: Optional[int] = None,
                 cache: Optional[DecodeCache] = None, *, frames=None,
                 patches=None):
@@ -420,7 +484,9 @@ class Model(nn.Module):
             cache = cache._replace(pos=s)
         x = L.embed(cfg, self.embed, tokens)
         if cfg.frontend == "vision":
-            x = torch.cat([self._vision(patches), x], dim=1)
+            x = torch.cat([gathered(self._vision(patches), (1,)),
+                           gathered(x, (1,))], dim=1)
+        x = constrain(x, "act_btd")
         if cfg.is_encdec:
             self._cross_kv(self.encode(frames), cache)
         h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
@@ -430,17 +496,18 @@ class Model(nn.Module):
             params, dst = block[spec.mixer], cache.blocks[i]
             if spec.mixer == MIXER_ATTN:
                 out, kv = attn.attend_full(cfg, params, h, positions)
-                dst.k[p, :, :s] = kv.k
-                dst.v[p, :, :s] = kv.v
+                write_prefix(dst.k[p], kv.k)
+                write_prefix(dst.v[p], kv.v)
             else:
                 out, state = _FULL[spec.mixer](cfg, params, h)
                 for t, new in zip(dst, state):
-                    t[p].copy_(new)
+                    assign(t[p], new)
             x, h, _ = _residuals(cfg, spec, block, x, out, norm,
                                  self._memory(cache, p, i))
-        return L.lm_logits(cfg, self.embed, h[:, -1:]), cache
+            x, h = _block_end(x, h)
+        return L.lm_logits(cfg, self.embed, gathered(h, (1,))[:, -1:]), cache
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(self, cache: DecodeCache, tokens):
         """tokens: (B, 1) the token sampled at position cache.pos_t - 1;
         returns logits for position cache.pos_t and the cache, updated in
@@ -464,10 +531,10 @@ class Model(nn.Module):
             else:
                 out, new = _DECODE[spec.mixer](cfg, params, h, state)
                 for t, n in zip(state, new):
-                    t.copy_(n)
+                    assign(t, n)
             x, h, _ = _residuals(cfg, spec, block, x, out, norm,
                                  self._memory(cache, p, i), cache.cross_pos_t)
-        logits = L.lm_logits(cfg, self.embed, h)
+        logits = constrain(L.lm_logits(cfg, self.embed, h), "logits")
         cache.pos_t.add_(1)
         return logits, cache._replace(pos=pos + 1)
 
@@ -475,7 +542,7 @@ class Model(nn.Module):
     def _vision(self, patches):
         """The vision stub: the patches projected by ``vis_proj``."""
         dtype = self.cfg.compute_dtype
-        return patches.to(dtype) @ self.vis_proj.to(dtype)
+        return matmul(patches.to(dtype), self.vis_proj.to(dtype))
 
     def _train_period(self, layers, positions, x, h, aux, enc):
         """The blocks of one period over the whole sequence: (x, h, aux)
@@ -493,6 +560,7 @@ class Model(nn.Module):
             memory = (None if enc is None else attn.KVCache(
                 *attn._project_kv(cfg, bp["cross_attn"], enc)))
             x, h, a = _residuals(cfg, spec, bp, x, out, norm, memory)
+            x, h = _block_end(x, h)
             if a is not None:
                 aux = aux + a
         return x, h, aux
@@ -510,7 +578,9 @@ class Model(nn.Module):
         x = L.embed(cfg, self.embed, batch["tokens"])
         enc = self._encode(batch["frames"]) if cfg.is_encdec else None
         if cfg.frontend == "vision":
-            x = torch.cat([self._vision(batch["patches"]), x], dim=1)
+            x = torch.cat([gathered(self._vision(batch["patches"]), (1,)),
+                           gathered(x, (1,))], dim=1)
+        x = constrain(x, "act_btd")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -525,8 +595,8 @@ class Model(nn.Module):
             else:
                 x, h, aux = period(x, h, aux, enc)
         if cfg.frontend == "vision":
-            h = h[:, batch["patches"].shape[1]:]
-        logits = L.lm_logits(cfg, self.embed, h)
+            h = gathered(h, (1,))[:, batch["patches"].shape[1]:]
+        logits = constrain(L.lm_logits(cfg, self.embed, h), "logits")
         loss = L.cross_entropy(logits, batch["labels"], cfg.vocab_size)
         if any(b.ffn == FFN_MOE for b in cfg.period):
             loss = loss + 0.01 * aux / cfg.n_layers

@@ -12,6 +12,11 @@ A tree is a dict of tensors keyed by name, in the order the leaves are
 written (``Model.named_parameters()`` order; ``flatten_opt`` for the
 optimizer state).  Restore reads into the names, shapes and dtypes of a
 ``like`` dict, onto a given device.
+
+Under a sharding policy every rank calls both: a DTensor leaf is saved
+whole (each rank takes part in gathering it; rank 0 writes, the others
+wait for the commit), and ``restore_checkpoint(..., shardings=)``
+distributes each leaf it reads to its ``NamedSharding``.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.compat import DTensor, distribute_tensor
 from repro_torch.training.optimizer import AdamWState
 
 MANIFEST = "manifest.json"
@@ -31,6 +38,27 @@ MANIFEST = "manifest.json"
 def save_checkpoint(ckpt_dir, step: int, tree: Dict[str, torch.Tensor],
                     keep: int = 3) -> pathlib.Path:
     ckpt_dir = pathlib.Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:08d}"
+    if any(isinstance(t, DTensor) for t in tree.values()):
+        writer = dist.get_rank() == 0
+        try:
+            if writer:
+                _save(ckpt_dir, step, tree, keep)
+            else:  # take part in gathering each leaf
+                for leaf in tree.values():
+                    _whole(leaf)
+        finally:
+            dist.barrier()
+        return final
+    return _save(ckpt_dir, step, tree, keep)
+
+
+def _whole(leaf) -> torch.Tensor:
+    t = leaf.detach()
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _save(ckpt_dir: pathlib.Path, step: int, tree, keep: int):
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
@@ -41,7 +69,7 @@ def save_checkpoint(ckpt_dir, step: int, tree: Dict[str, torch.Tensor],
     meta = {"step": step, "n_leaves": len(tree), "names": list(tree),
             "leaves": []}
     for i, leaf in enumerate(tree.values()):
-        t = leaf.detach()
+        t = _whole(leaf)
         orig_dtype = str(t.dtype).replace("torch.", "")
         if not t.dtype.is_floating_point or t.dtype in (torch.float32,
                                                         torch.float64):
@@ -74,11 +102,13 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir, like: Dict[str, torch.Tensor],
-                       step: Optional[int] = None,
-                       device=None) -> Dict[str, torch.Tensor]:
+                       step: Optional[int] = None, device=None,
+                       shardings=None) -> Dict[str, torch.Tensor]:
     """The checkpoint at ``step`` (default the latest) as a dict with
     ``like``'s names, shapes and dtypes, on ``device`` (default each
-    ``like`` tensor's own).  Raises if the names or a shape differ."""
+    ``like`` tensor's own); with ``shardings`` (``{name:
+    NamedSharding}``), each leaf distributed to its own.  Raises if the
+    names or a shape differ."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -97,8 +127,12 @@ def restore_checkpoint(ckpt_dir, like: Dict[str, torch.Tensor],
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i} ({name}): ckpt {arr.shape} vs model "
                              f"{tuple(ref.shape)}")
-        out[name] = torch.from_numpy(arr).to(
+        t = torch.from_numpy(arr).to(
             device=ref.device if device is None else device, dtype=ref.dtype)
+        if shardings is not None:
+            s = shardings[name]
+            t = distribute_tensor(t, s.mesh, s.placements)
+        out[name] = t
     return out
 
 

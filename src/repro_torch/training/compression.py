@@ -3,9 +3,10 @@
 int8 quantization with per-leaf scales and *error feedback* [Seide et al.,
 1-bit SGD; Karimireddy et al. EF-SGD]: the quantization residual is carried
 into the next step so compression error doesn't bias convergence.  The
-reference applies it only to the pod-axis all-reduce in multi-pod
-training, which the port does not run yet (ROADMAP item 18); the functions
-are here, expression for expression, for that path.
+reference's module names the pod-axis all-reduce of multi-pod training,
+but its sharded step (``launch/steps.py::build_train_step``) calls none
+of it, and so the port's does not either; the functions are here,
+expression for expression, with the reference's tests.
 
 Trees are dicts of tensors keyed by parameter name, as the trainer holds
 gradients.  The arithmetic is the reference's IEEE fp32 division and

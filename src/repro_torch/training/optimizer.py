@@ -17,6 +17,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from repro_torch.distributed.local import assign
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor              # int32 scalar, on the parameters' device
@@ -71,10 +73,15 @@ def global_norm(tree: Dict[str, torch.Tensor]):
 @torch.no_grad()
 @torch.profiler.record_function("adamw_update")
 def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
-                 grads: Dict[str, torch.Tensor], state: AdamWState):
+                 grads: Dict[str, torch.Tensor], state: AdamWState,
+                 constrain_update=None):
     """One AdamW step with global-norm clipping.  Writes each parameter in
-    place (rounded back to its dtype) and returns (params, new state,
-    {"grad_norm", "lr"})."""
+    place (rounded back to its dtype, at its own placements if it is a
+    DTensor) and returns (params, new state, {"grad_norm", "lr"}).
+
+    ``constrain_update``: optional ``fn(name, delta) -> delta`` pinning
+    each parameter's update to the ZeRO-1 layout before it is applied
+    (the reference's tree function, a leaf at a time here)."""
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     step = state.step + 1
@@ -88,7 +95,9 @@ def adamw_update(cfg: AdamWConfig, params: Dict[str, torch.Tensor],
         v2 = cfg.b2 * state.v[k] + (1 - cfg.b2) * g * g
         delta = (m2 / b1c) / (torch.sqrt(v2 / b2c) + cfg.eps) \
             + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        if constrain_update is not None:
+            delta = constrain_update(k, delta)
+        assign(p, (p.float() - lr * delta).to(p.dtype))
         new_m[k], new_v[k] = m2, v2
     return params, AdamWState(step=step, m=new_m, v=new_v), {
         "grad_norm": gnorm, "lr": lr}

@@ -1,6 +1,6 @@
 """Trainer: an eager step (loss, backward, AdamW) plus checkpoint/restart
 and straggler accounting, as the reference package's
-``training/train_loop.py`` runs without a sharding policy.
+``training/train_loop.py``.
 
 Fault tolerance drill: kill the process at any step, rerun the same
 command — the trainer resumes from the latest atomic checkpoint and the
@@ -8,9 +8,11 @@ deterministic pipeline replays the exact batch stream.
 
 The step is eager: ``model.train_loss(batch).backward()`` through the
 model's kernels and their backward kernels, then ``adamw_update`` on the
-float32 parameters in place.  A ``ShardingPolicy`` (the reference's
-multi-device step, ``launch/steps.py::build_train_step``) is not ported
-yet (ROADMAP item 18).
+float32 parameters in place (``launch/steps.py::train_step_fn``).  With a
+``ShardingPolicy`` it is the reference's multi-device step
+(``launch/steps.py::build_train_step``): parameters and the ZeRO-1
+optimizer state are DTensors placed by ``tree_shardings``, each step
+runs under the policy, and checkpoints hold the full tensors.
 """
 from __future__ import annotations
 
@@ -24,10 +26,13 @@ import torch
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.data.pipeline import SyntheticPipeline
 from repro_torch.device import resolve_device
+from repro_torch.distributed.compat import DTensor
+from repro_torch.launch.steps import (build_train_step, place, sharded_step,
+                                      train_step_fn)
 from repro_torch.models.transformer import Model
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
-                                            adamw_init, adamw_update)
+                                            adamw_init)
 from repro_torch.training.straggler import StragglerMonitor
 
 
@@ -40,37 +45,56 @@ class TrainConfig:
     opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
 
 
+def _host(t) -> float:
+    """A replicated scalar's value on the host."""
+    return float(t.to_local() if isinstance(t, DTensor) else t)
+
+
 class Trainer:
-    """``Trainer(model, shape, None, tcfg).run()`` trains ``model`` (a
+    """``Trainer(model, shape, policy, tcfg).run()`` trains ``model`` (a
     ``Model`` whose parameters ``init_state`` draws) on ``pipeline``'s
     batches (default: ``SyntheticPipeline(model.cfg, shape)``) on
-    ``device`` (None: the GPU, which must be there)."""
+    ``device`` (None: the GPU, which must be there); ``policy`` None runs
+    one device, a ``ShardingPolicy`` its mesh, from an initialised process
+    group (every rank runs the same command)."""
 
     def __init__(self, model: Model, shape: ShapeSpec, policy, tcfg:
                  TrainConfig, pipeline: Optional[SyntheticPipeline] = None,
                  device=None):
-        if policy is not None:
-            raise NotImplementedError(
-                "the torch Trainer runs one device; a ShardingPolicy (the "
-                "reference's launch/steps.py::build_train_step) is ROADMAP "
-                "item 18")
         self.device = resolve_device(device)
         self.model = model
         self.shape = shape
+        self.policy = policy
         self.tcfg = tcfg
         self.pipeline = pipeline or SyntheticPipeline(model.cfg, shape)
         self.monitor = StragglerMonitor()
         self.history: list = []
+        if policy is not None:
+            step, in_sh, out_sh, _ = build_train_step(model, policy, shape,
+                                                      tcfg.opt)
+            self._p_shard, self._o_shard = in_sh[0], in_sh[1]
+            self._step = sharded_step(policy, step, in_sh, out_sh)
+        else:
+            self._p_shard = self._o_shard = None
+            self._step = train_step_fn(model, tcfg.opt)
 
     # -- state ----------------------------------------------------------------
     def init_state(self, seed: int = 0):
         """(params, AdamW state): the model's parameters drawn from a
         generator seeded with ``seed`` on the trainer's device, float32,
-        as a name -> tensor dict."""
+        as a name -> tensor dict; placed by the policy, if any."""
         gen = torch.Generator(self.device).manual_seed(seed)
         self.model.init(gen, train=True)
         params = dict(self.model.named_parameters())
-        return params, adamw_init(params)
+        return self.place(params, adamw_init(params))
+
+    def place(self, params, opt: AdamWState):
+        """``(params, opt)`` at the policy's placements (parameters by
+        ``tree_shardings``, the moments by its ZeRO-1 variant), each the
+        same on every rank before; as they are without a policy."""
+        if self.policy is None:
+            return params, opt
+        return place(params, self._p_shard), place(opt, self._o_shard)
 
     def _adopt(self, params: Dict[str, torch.Tensor]):
         """Makes ``params`` the model's trainable parameters; returns them
@@ -86,10 +110,12 @@ class Trainer:
         if last is None:
             return params, opt, 0
         params = ckpt.restore_checkpoint(self.tcfg.ckpt_dir, params,
-                                         device=self.device)
+                                         device=self.device,
+                                         shardings=self._p_shard)
         opt = ckpt.unflatten_opt(ckpt.restore_checkpoint(
             pathlib.Path(self.tcfg.ckpt_dir) / "opt", ckpt.flatten_opt(opt),
-            device=self.device))
+            device=self.device, shardings=None if self._o_shard is None
+            else ckpt.flatten_opt(self._o_shard)))
         return params, opt, last
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
@@ -105,14 +131,7 @@ class Trainer:
         """One training step on the model's parameters ``params``: returns
         (params, opt, loss, metrics).  Each parameter's ``.grad`` holds
         this step's gradient until the next step clears it."""
-        for p in params.values():
-            p.grad = None
-        loss = self.model.train_loss(batch)
-        loss.backward()
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
-        params, opt, metrics = adamw_update(self.tcfg.opt, params, grads, opt)
-        return params, opt, loss.detach(), metrics
+        return self._step(params, opt, batch)
 
     # -- loop -------------------------------------------------------------------
     def run(self, seed: int = 0,
@@ -124,12 +143,12 @@ class Trainer:
             batch = self.batch(step_i)
             t0 = time.perf_counter()
             params, opt, loss, metrics = self.step(params, opt, batch)
-            loss = float(loss)          # waits for the step's device work
+            loss = _host(loss)          # waits for the step's device work
             dt = time.perf_counter() - t0
             self.monitor.record(0, dt)
             self.history.append(
                 dict(step=step_i, loss=loss, sec=dt,
-                     grad_norm=float(metrics["grad_norm"])))
+                     grad_norm=_host(metrics["grad_norm"])))
             if on_step:
                 on_step(step_i, loss)
             if (step_i + 1) % self.tcfg.log_every == 0:

@@ -1429,3 +1429,70 @@ def test_train_step_on_card_matches_cpu(cuda, arch, tmp_path):
     for k, p in params.items():
         g = cparams[k].grad.cpu()
         assert (g - p.grad).norm() <= 1e-3 * p.grad.norm() + 1e-12, k
+
+
+@pytest.fixture
+def one_rank_mesh(cuda, tmp_path):
+    """The (1, 1) ("data", "model") mesh over a one-rank NCCL group made
+    from a FileStore (no TCP port), destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.distributed.compat import init_device_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_constrain_outside_a_policy_is_the_same_object(cuda):
+    from repro_torch.distributed.sharding import constrain, get_policy
+    x = torch.zeros(8, 16, 64, device=cuda)
+    assert get_policy() is None and constrain(x, "act_btd") is x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_on_one_rank_dtensors_are_the_plain_calls(one_rank_mesh,
+                                                          dtype):
+    """K1 (plain and fused), K2 and K3 on DTensors placed as the policy
+    places them (batch on ``data``, heads on ``model``) over one rank:
+    the same bits as the calls on the plain tensors, one launch each."""
+    from repro_torch.distributed.compat import (DTensor, Replicate, Shard,
+                                                distribute_tensor)
+    mesh, dev = one_rank_mesh, torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(27)
+
+    def place(t, *pl):
+        return distribute_tensor(t, mesh, pl)
+
+    def launches():
+        return (rms_ops.rmsnorm.launches, rms_ops.add_rmsnorm.launches,
+                fa_ops.flash_attention.launches,
+                da_ops.decode_attention.launches)
+
+    x, r = (_randn(gen, (8, 64, 4096), dtype, dev) for _ in range(2))
+    scale = _randn(gen, (4096,), torch.float32, dev)
+    q = _randn(gen, (2, 256, 32, 128), dtype, dev)
+    k, v = (_randn(gen, (2, 256, 8, 128), dtype, dev) for _ in range(2))
+    qd = _randn(gen, (8, 32, 128), dtype, dev)
+    kc, vc = (_randn(gen, (8, 576, 8, 128), dtype, dev) for _ in range(2))
+    pos = torch.full((1,), 500, dtype=torch.int64, device=dev)
+    rows, heads = (Shard(0), Replicate()), (Shard(0), Shard(2))
+    before = launches()
+    got = [rms_ops.rmsnorm(place(x, *rows), place(scale, Replicate(),
+                                                  Replicate())),
+           *rms_ops.add_rmsnorm(place(x, *rows), place(r, *rows), scale),
+           fa_ops.flash_attention(place(q, *heads), place(k, *heads),
+                                  place(v, *heads)),
+           da_ops.decode_attention(place(qd, Shard(0), Shard(1)),
+                                   place(kc, *heads), place(vc, *heads),
+                                   pos)]
+    assert [b - a for a, b in zip(before, launches())] == [1, 1, 1, 1]
+    want = [rms_ops.rmsnorm(x, scale), *rms_ops.add_rmsnorm(x, r, scale),
+            fa_ops.flash_attention(q, k, v),
+            da_ops.decode_attention(qd, kc, vc, pos)]
+    for g, w in zip(got, want):
+        assert isinstance(g, DTensor)
+        assert torch.equal(g.full_tensor(), w)

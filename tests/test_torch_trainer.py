@@ -140,11 +140,31 @@ def test_trainer_keeps_float32_parameters_and_casts_at_use(tmp_path):
 
 
 def test_trainer_refuses_a_policy_and_wants_a_card_by_default(tmp_path):
+    """A policy is taken since the policy path was ported (the name is
+    the test's from before): the Trainer builds the reference's sharded
+    step over a one-rank mesh, its parameter and ZeRO-1 placements from
+    ``tree_shardings``.  Without ``device`` it wants a card."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch.mesh import make_host_mesh
     cfg = get_smoke_config("qwen3-0.6b")
     shape = ShapeSpec("t", seq_len=16, global_batch=2, kind="train")
     tc = TrainConfig(ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        Trainer(Model(cfg), shape, object(), tc, device="cpu")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        policy = ShardingPolicy(make_host_mesh(1))
+        t = Trainer(Model(cfg), shape, policy, tc, device="cpu")
+        assert t.policy is policy
+        assert set(t._p_shard) == set(t._o_shard.m) == {
+            k for k, _ in Model(cfg).init(
+                torch.Generator().manual_seed(0)).named_parameters()}
+        # ZeRO-1: each moment cut over data (every dim divides a 1-wide
+        # axis), each parameter not
+        assert all("data" in s.spec for s in t._o_shard.m.values())
+        assert not any("data" in s.spec for s in t._p_shard.values())
+    finally:
+        dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(Model(cfg), shape, None, tc)
