@@ -9,7 +9,9 @@ stack with ALA in the loop (the roofline simulator, the fleet and heap
 engines, the autoscaler and the online refit), its observability
 layer (spans, the calibration audit, the Chrome trace), and training
 (qwen3-0.6b whole through ``Trainer.run``, with the backward kernels of
-RMSNorm and flash attention).
+RMSNorm and flash attention), the sharding policy on one rank, and its
+dry run at production scale (256 fake ranks, the kernels as shape-only
+ops) held to the real calls.
 
     python3 chip_smoke.py
 
@@ -239,7 +241,27 @@ Phases, each printing its own lines:
     a ZeRO-1 policy and without one, from the same seed: losses and
     parameters bit for bit, launches equal; the policy and policy-free
     ms of the prefill, a decode step and a training step, and peak
-    memory, printed (records, not gates); the group destroyed;
+    memory, printed (records, not gates); one more policy prefill and
+    training step each counted under ``launch/cost.py::StepCost`` (its
+    FLOPs and the call's peak memory, for [21]); the group destroyed;
+21. (run before [20]) the dry run (``launch/dryrun.py``,
+    ``analysis/``), in a subprocess (``chip_smoke.py --dryrun-phase
+    OUT``: one process cannot hold phase [19]'s NCCL group and a
+    256-rank fake group) that sees no card and runs beside phases [3]
+    on, started after [2]'s build; [21] reads its results: (a) ``perf_report``'s three
+    cells (qwen2.5-32b decode_32k, llama3.2-3b prefill_32k,
+    llama4-maverick train_4k) traced as rank 0 of a 256-rank fake group
+    on the (16, 16) mesh over meta tensors, full, u1 and u2, auto and
+    baseline policy, on this machine's torch: every record ok, the
+    ``report()`` table printed, the records copied to
+    ``chiprun_out/dryrun/``; (b) phase [19]'s prefill and training step
+    traced on a fake world of one rank: the traced FLOPs equal to those
+    counted over the real call, the traced peak (arguments plus temp)
+    within 10% of the real call's (its arguments plus what it allocated
+    beyond what was live before it), the measured ms at least the
+    compute term (FLOPs over 989 TFLOP/s), the memory term printed; (c)
+    the K1-K3 launch counters, and the ``kernels`` line's counts,
+    unchanged by the phase (the traces launch nothing);
 20. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
@@ -1438,7 +1460,7 @@ def k1_timings(gen, rows, d):
         library_device_ms=device_ms(rms_lib, sets),
         library_call="F.rms_norm",
         copy_device_ms=_copy_device_ms(nbytes, len(sets)),
-        bound=_bound(nbytes, 4 * rows * d, PEAK_FP32)))
+        bound=_bound(nbytes, rms_ops.rmsnorm_flops(rows, d), PEAK_FP32)))
     nbytes = 4 * rows * d * 2 + d * 4
     sets = [(_randn(gen, (rows, d), BF16), _randn(gen, (rows, d), BF16),
              scale) for _ in range(_n_sets(nbytes))]
@@ -1454,7 +1476,8 @@ def k1_timings(gen, rows, d):
         library_device_ms=device_ms(add_rms_lib, sets),
         library_call="x + r, then F.rms_norm (two calls)",
         copy_device_ms=_copy_device_ms(nbytes, len(sets)),
-        bound=_bound(nbytes, 5 * rows * d, PEAK_FP32)))
+        bound=_bound(nbytes, rms_ops.rmsnorm_flops(rows, d, fused=True),
+                     PEAK_FP32)))
     return out
 
 
@@ -1466,7 +1489,6 @@ def k2_timing(gen, bb, sq, sk, h, kv, dh, causal):
     (row, key) pairs the mask keeps."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     nbytes = 2 * bb * (2 * sq * h + 2 * sk * kv) * dh
-    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
     sets = [(_randn(gen, (bb, sq, h, dh), BF16),
              _randn(gen, (bb, sk, kv, dh), BF16),
              _randn(gen, (bb, sk, kv, dh), BF16))
@@ -1494,7 +1516,9 @@ def k2_timing(gen, bb, sq, sk, h, kv, dh, causal):
         library_ms=time_ms(fa_lib, sets),
         device_ms=device_ms(fa, sets, "flash_fwd"),
         library_device_ms=device_ms(fa_lib, sets),
-        bound=_bound(nbytes, 4 * bb * h * dh * pairs, PEAK_BF16))
+        bound=_bound(nbytes, fa_ops.flash_attention_flops(bb, sq, sk, h, dh,
+                                                          causal),
+                     PEAK_BF16))
 
 
 def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False, tag="[4]"):
@@ -1536,7 +1560,8 @@ def k3_timing(gen, bb, t, h, kv, dh, smi, by_split=False, tag="[4]"):
         library_ms=time_ms(da_lib, sets),
         device_ms=device_ms(da, sets, "decode_attn"),
         library_device_ms=device_ms(da_lib, sets),
-        bound=_bound(nbytes, 4 * bb * h * dh * (pos + 1), PEAK_BF16))
+        bound=_bound(nbytes, da_ops.decode_attention_flops(bb, h, dh, pos + 1),
+                     PEAK_BF16))
     rate = nbytes / tm["device_ms"] / 1e6
     chunks = -(-g // da_kernel.HEADS_A_BLOCK)
     # the same call cut into other numbers of splits: what the plan
@@ -3362,7 +3387,7 @@ def k1_bwd_timing(gen, rows, d, fused):
         device_ms=2 * device_ms(rms_ops.rmsnorm_bwd, sets, "rmsnorm_bwd"),
         library_device_ms=device_ms(lib, lib_sets),
         library_call="F.rms_norm's backward (autograd)",
-        bound=_bound(nbytes, 10 * rows * d, PEAK_FP32))
+        bound=_bound(nbytes, rms_ops.rmsnorm_bwd_flops(rows, d), PEAK_FP32))
 
 
 def k2_bwd_timing(gen, b, sq, sk, h, kv, dh, causal):
@@ -3375,7 +3400,6 @@ def k2_bwd_timing(gen, b, sq, sk, h, kv, dh, causal):
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     nbytes = 2 * (4 * b * sq * h * dh + 4 * b * sk * kv * dh) + 4 * b * h * sq
-    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk)
     sets = []
     for _ in range(_n_sets(nbytes)):
         q = _randn(gen, (b, sq, h, dh), BF16)
@@ -3416,7 +3440,9 @@ def k2_bwd_timing(gen, b, sq, sk, h, kv, dh, causal):
         device_ms=device_ms(kernel, sets, K2_BWD_KERNELS, calls=8),
         library_device_ms=device_ms(lib, lib_sets, calls=8),
         library_call="SDPA's backward (autograd)",
-        bound=_bound(nbytes, 10 * b * h * dh * pairs, PEAK_BF16))
+        bound=_bound(nbytes, fa_ops.flash_attention_bwd_flops(
+            b, sq, sk, h, dh, causal, products=fa_ops.BWD_PRODUCTS_NEEDED),
+            PEAK_BF16))
 
 
 def _rel_norm(got, want) -> float:
@@ -3760,6 +3786,26 @@ def _whole(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def _real_cost(fn, args):
+    """One more call of ``fn`` (whose arguments are ``args``) on the card
+    under ``launch/cost.py::StepCost``, for phase [21] (b): (the FLOPs of
+    its local ops, its peak bytes: the arguments' storages plus the most
+    it allocated beyond what was live before it).  Its launches are no
+    phase's."""
+    from repro_torch.launch.cost import StepCost
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cost = StepCost()
+    held = cost.hold(args)
+    with cost:
+        fn()
+    torch.cuda.synchronize()
+    return dict(flops=cost.flops,
+                peak=torch.cuda.max_memory_allocated() - before + held)
+
+
 def policy_serve(mesh, smi):
     """llama3.1-8b whole in bf16: a prefill (B 8, S 512) and eager decode
     steps, policy-free and through ``build_prefill_step`` /
@@ -3824,6 +3870,9 @@ def policy_serve(mesh, smi):
         pol_steps.append(sec)
     pol_dec_n = n
     peak = torch.cuda.max_memory_allocated() / 1e9
+    real = _real_cost(lambda: run_pre(params, {"tokens": toks}),
+                      (params, {"tokens": toks}))
+    real["ms"] = 1e3 * pol_pre_s
     counts_ok = pol_pre == free_pre and pol_dec_n == free_dec_n and all(
         free_pre[k] > 0 for k in ("rmsnorm", "add_rmsnorm",
                                   "flash_attention")) and \
@@ -3846,14 +3895,15 @@ def policy_serve(mesh, smi):
     del model, params, cache, cache1, spare, state
     gc.collect()
     torch.cuda.empty_cache()
-    return ok, launches, lines
+    return ok, launches, lines, real
 
 
 def policy_train(mesh, smi):
     """qwen3-0.6b whole through ``Trainer.run`` (S 4,096, B 4, 3 steps),
     policy-free and under a ZeRO-1 policy on the (1, 1) mesh, from the
     same seed: losses and parameters bit for bit, launches equal.
-    Returns (ok, launches of the policy run, lines)."""
+    Returns (ok, launches of the policy run, lines, one more ZeRO-1 step's
+    ``_real_cost`` and the run's step ms)."""
     import tempfile
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeSpec
@@ -3892,6 +3942,14 @@ def policy_train(mesh, smi):
             dtensor=all(isinstance(p, DTensor) for p in params.values()),
             zero=all(isinstance(m, DTensor) for m in opt.m.values()),
             params={k: _whole(p).detach().clone() for k, p in params.items()})
+        if policy is not None:
+            # one more step, counted, its gradients made anew as a step's
+            for p in params.values():
+                p.grad = None
+            more = trainer.batch(steps)
+            runs[name]["real"] = _real_cost(
+                lambda: trainer.step(params, opt, more), (params, opt, more))
+            del more
         del trainer, params, opt
         gc.collect()
     free, pol = runs["policy-free"], runs["ZeRO-1"]
@@ -3921,17 +3979,19 @@ def policy_train(mesh, smi):
         f"moments DTensors {pol['dtensor'] and pol['zero']}; launches "
         f"{pol['launches']} (policy-free {free['launches']}): "
         f"{'ok' if ok else 'FAIL'}"]
+    real = dict(pol["real"], ms=pol["ms"])
     del runs
     gc.collect()
     torch.cuda.empty_cache()
-    return ok, pol["launches"], lines
+    return ok, pol["launches"], lines, real
 
 
 def policy_phase(smi):
     """Phase [19]: a one-rank NCCL group from a ``FileStore`` in a
     temporary directory (no TCP port), the (1, 1) ("data", "model") mesh,
     (a) serving and (b) training through the sharding policy, the group
-    destroyed at the end.  Returns (ok, launches of the policy calls)."""
+    destroyed at the end.  Returns (ok, launches of the policy calls, the
+    prefill's and the training step's ``_real_cost`` with their ms)."""
     import tempfile
     import torch.distributed as dist
     from repro_torch.distributed.compat import init_device_mesh
@@ -3946,9 +4006,9 @@ def policy_phase(smi):
                                     mesh_dim_names=("data", "model"))
             for c in _kernel_counters():
                 c.launches = 0
-            ok_a, grew_a, lines = policy_serve(mesh, smi)
+            ok_a, grew_a, lines, real_pre = policy_serve(mesh, smi)
             print("\n".join(lines))
-            ok_b, grew_b, lines = policy_train(mesh, smi)
+            ok_b, grew_b, lines, real_train = policy_train(mesh, smi)
             print("\n".join(lines))
         finally:
             dist.destroy_process_group()
@@ -3957,7 +4017,168 @@ def policy_phase(smi):
     print(f"[19] checks: (a) serving {'ok' if ok_a else 'FAIL'}, (b) "
           f"training {'ok' if ok_b else 'FAIL'}; launches through the "
           f"policy {launches} ({time.perf_counter() - t0:.1f} s)")
-    return ok_a and ok_b, launches
+    return ok_a and ok_b, launches, {"prefill": real_pre,
+                                     "train": real_train}
+
+
+# phase [21], the dry run: perf_report's three cells traced on the (16,
+# 16) fake mesh (full, u1 and u2; auto and baseline policy) in a process
+# of its own, and phase [19]'s two policy calls traced on a fake world of
+# one rank, held to their real calls: FLOPs exactly, peak memory within
+# DRYRUN_PEAK_TOL
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_FLAG = "--dryrun-phase"
+
+
+def dryrun_child(path) -> int:
+    """Phase [21]'s traces, run as ``chip_smoke.py --dryrun-phase PATH``:
+    no card is touched.  Writes the records' summaries, the
+    ``perf_report`` table, the two one-rank traces and the K1-K3 launch
+    counters' growth (0 when every kernel ran as its shape-only op) to
+    PATH as JSON."""
+    from repro_torch.analysis import perf_report
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import Model
+    t_start = time.perf_counter()
+    counters = _kernel_counters()
+    before = [c.launches for c in counters]
+    recs = []
+    for arch, shape, _ in perf_report.CELLS:
+        for policy in ("auto", "baseline"):
+            for u in (0, 1, 2):
+                t0 = time.perf_counter()
+                rec = dryrun.run_cell(arch, shape, unroll_periods=u,
+                                      policy_mode=policy)
+                recs.append({**{k: rec.get(k) for k in (
+                    "arch", "shape", "policy", "unroll_periods", "status",
+                    "error", "flops", "bytes_accessed", "memory",
+                    "collectives")}, "s": time.perf_counter() - t0,
+                    "file": dryrun.record_name(rec)})
+    table = perf_report.report()
+    b, s = POLICY_PREFILL
+    seq, batch, _ = POLICY_TRAIN
+    traced = {}
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh(1, device_type="cuda")
+        for name, arch, policy, shape in (
+                ("prefill", ARCH, ShardingPolicy(mesh, serving=True),
+                 ShapeSpec("prefill", s, b, "prefill")),
+                ("train", TRAIN_ARCH, ShardingPolicy(mesh),
+                 ShapeSpec("train_4k", seq, batch, "train"))):
+            t0 = time.perf_counter()
+            cost, mem = dryrun.trace_step(Model(get_config(arch)), policy,
+                                          shape)
+            traced[name] = dict(
+                flops=cost.flops, bytes=cost.bytes_accessed, memory=mem,
+                peak=mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"],
+                s=time.perf_counter() - t0)
+    Path(path).write_text(json.dumps(dict(
+        records=recs, table=table, traced=traced,
+        launches=[c.launches - n for c, n in zip(counters, before)],
+        s=time.perf_counter() - t_start)))
+    return 0
+
+
+def dryrun_start():
+    """Starts ``dryrun_child`` in a process of its own, which sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty) and runs beside the card's phases:
+    one process cannot hold phase [19]'s NCCL group and a 256-rank fake
+    group, and the traces need only the host.  Returns (the process, its
+    directory); the process is killed at exit if it still runs."""
+    import atexit
+    import os
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    with open(tmp / "log.txt", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), DRYRUN_FLAG,
+             str(tmp / "dryrun.json")], stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, tmp
+
+
+def dryrun_phase(smi, started, real, launches):
+    """Phase [21]: waits for ``dryrun_start``'s process (``started``), then
+    copies its records to ``chiprun_out/dryrun/``.  Gates: (a) every record
+    ok; (b) each one-rank trace's FLOPs equal to ``real``'s (phase [19]'s
+    calls, counted alike), its peak within DRYRUN_PEAK_TOL of the real
+    one, and each call's measured ms at least its compute term; (c) the
+    kernels' launch counters, and the ``kernels`` line's counts
+    (``launches``), unchanged.  Returns ok."""
+    import shutil
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+    t0 = time.perf_counter()
+    counters = _kernel_counters()
+    before = [c.launches for c in counters]
+    counted = dict(launches)
+    proc, tmp = started
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    out = tmp / "dryrun.json"
+    res = json.loads(out.read_text()) if out.exists() else None
+    log = (tmp / "log.txt").read_text()
+    shutil.rmtree(tmp, ignore_errors=True)
+    if rc != 0 or res is None:
+        print(f"[21] the dry run's process failed (rc {rc}):\n{log[-3000:]}")
+        return False
+    dst = REPO / "chiprun_out" / "dryrun"
+    dst.mkdir(parents=True, exist_ok=True)
+    from repro_torch.launch.dryrun import RESULTS
+    for f in [*(RESULTS / r["file"] for r in res["records"]),
+              RESULTS.parent / "perf_report.json"]:
+        if f.exists():
+            shutil.copy(f, dst / f.name)
+    ok_a = all(r["status"] == "ok" for r in res["records"])
+    for r in res["records"]:
+        mem = r["memory"] or {}
+        print(f"[21] (a) {r['arch']} {r['shape']} {r['policy']} "
+              f"u{r['unroll_periods']}: {r['status']} in {r['s']:.1f} s; "
+              f"{r['flops'] or 0:.4g} FLOP, {r['bytes_accessed'] or 0:.4g} "
+              f"bytes, arguments "
+              f"{mem.get('argument_size_in_bytes', 0) / 1e9:.2f} GB, temp "
+              f"{mem.get('temp_size_in_bytes', 0) / 1e9:.2f} GB a device; "
+              f"collectives {r['collectives']}"
+              + (f"; {r['error']}" if r["error"] else ""))
+    print("[21] (a) perf_report (per-device terms of one rank's traced "
+          "step, H100 constants):\n" + res["table"])
+    ok_b = True
+    for name in ("prefill", "train"):
+        tr, rl = res["traced"][name], real[name]
+        t_comp = 1e3 * tr["flops"] / PEAK_FLOPS
+        t_mem = 1e3 * tr["bytes"] / HBM_BW
+        same = tr["flops"] == rl["flops"]
+        close = abs(tr["peak"] - rl["peak"]) <= DRYRUN_PEAK_TOL * rl["peak"]
+        slower = rl["ms"] >= t_comp
+        ok_b = ok_b and same and close and slower
+        print(f"[21] (b) {name} (phase [19]'s call) traced on one fake rank "
+              f"in {tr['s']:.1f} s: {tr['flops']:.6g} FLOP traced, "
+              f"{rl['flops']:.6g} counted over the real call: equal {same}; "
+              f"peak {tr['peak'] / 1e9:.3f} GB traced, {rl['peak'] / 1e9:.3f} "
+              f"GB real (arguments plus what the call allocated): within "
+              f"{DRYRUN_PEAK_TOL:.0%} {close}; measured {rl['ms']:.2f} ms, "
+              f"compute term {t_comp:.2f} ms ({rl['ms'] / t_comp:.2f}x), "
+              f"memory term {t_mem:.2f} ms ({tr['bytes'] / 1e9:.2f} GB, "
+              f"{rl['ms'] / t_mem:.2f}x; no gate) [{smi}]")
+    ok_c = (res["launches"] == [0] * len(counters)
+            and [c.launches for c in counters] == before
+            and dict(launches) == counted)
+    print(f"[21] (c) launches in the traces {res['launches']}, in this "
+          f"process unchanged: {'ok' if ok_c else 'FAIL'}")
+    ok = ok_a and ok_b and ok_c
+    print(f"[21] checks: (a) records {'ok' if ok_a else 'FAIL'}, (b) one rank "
+          f"against the real calls {'ok' if ok_b else 'FAIL'}, (c) launches "
+          f"{'ok' if ok_c else 'FAIL'} (the traces took {res['s']:.1f} s "
+          f"beside the card's phases; {time.perf_counter() - t0:.1f} s "
+          f"waited here)")
+    return ok
 
 
 def main() -> int:
@@ -4034,6 +4255,9 @@ def main() -> int:
     print(f"[2] backward gate (HGMMA and no spill in every bf16 dK/dV and dQ "
           f"kernel): {'ok' if ok2_bwd else 'FAIL'}")
     ok2 = ok2 and ok2_bwd
+    # phase [21]'s traces need only the host: they run from here on, beside
+    # the card's phases, and phase [21] reads them
+    dry = dryrun_start()
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator("cuda").manual_seed(0)
@@ -4444,11 +4668,16 @@ def main() -> int:
     # launch steps on a one-rank mesh, bit for bit against the policy-free
     # calls ---------------------------------------------------------------
     t0 = time.perf_counter()
-    ok19, grew = policy_phase(smi)
+    ok19, grew, real = policy_phase(smi)
     for k, n in grew.items():
         launches[k] = launches.get(k, 0) + n
     print(f"[19] sharding policy: {'ok' if ok19 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 21. the dry run: the policy's three cells traced on a 256-rank fake
+    # mesh, and phase [19]'s calls traced on one fake rank against their
+    # real counts ------------------------------------------------------------
+    ok21 = dryrun_phase(smi, dry, real, launches)
 
     # -- 20. result -----------------------------------------------------------
     sources = {"rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
@@ -4498,6 +4727,7 @@ def main() -> int:
               "[15] encoder-decoder and vision": ok15,
               "[16] serving stack": ok16, "[17] observability": ok17,
               "[18] training": ok18, "[19] sharding policy": ok19,
+              "[21] dry run": ok21,
               "[20] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())
@@ -4515,4 +4745,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [DRYRUN_FLAG]:
+        sys.exit(dryrun_child(sys.argv[2]))
     sys.exit(main())

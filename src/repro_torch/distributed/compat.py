@@ -7,6 +7,7 @@ DTensor moved from ``torch.distributed._tensor`` to the public
 and 2.13 on the CPU, both public.  ``shard_map`` keeps the signature of
 the reference package's ``distributed/compat.py::shard_map``, with
 ``PartitionSpec``s as its specs, and runs over ``local_map``.
+``cost_analysis_dict`` gives a traced step's cost the reference's keys.
 """
 from __future__ import annotations
 
@@ -14,12 +15,11 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-from torch.distributed.tensor import zeros as dtensor_zeros
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 
 __all__ = ["DTensor", "DeviceMesh", "Partial", "Replicate", "Shard",
-           "distribute_tensor", "dtensor_zeros", "implicit_replication",
+           "cost_analysis_dict", "distribute_tensor", "implicit_replication",
            "init_device_mesh", "local_map", "local_shape_and_offset",
            "shard_map"]
 
@@ -64,3 +64,13 @@ def shard_map(f, mesh, in_specs, out_specs, check_vma: bool = True):
                      in_grad_placements=_placements_tree(mesh, in_specs,
                                                          grad=True),
                      device_mesh=mesh, redistribute_inputs=True)
+
+
+def cost_analysis_dict(cost) -> dict:
+    """A traced step's per-device cost (``launch/cost.py::StepCost``)
+    under the keys of the reference's ``Compiled.cost_analysis()``:
+    ``"flops"`` and ``"bytes accessed"``; {} for None."""
+    if cost is None:
+        return {}
+    return {"flops": float(cost.flops),
+            "bytes accessed": float(cost.bytes_accessed)}

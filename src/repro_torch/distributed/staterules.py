@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.compat import distribute_tensor, dtensor_zeros
+from repro_torch.distributed.compat import (DTensor, distribute_tensor,
+                                            local_shape_and_offset)
+from repro_torch.distributed.local import wrap
 from repro_torch.distributed.sharding import (NamedSharding, P,
                                               PartitionSpec, ShardingPolicy)
 from repro_torch.models.attention import KVCache
@@ -82,21 +84,29 @@ def decode_cache_shardings(policy: ShardingPolicy, cache):
         else NamedSharding(policy.mesh, specs.cross_pos_t))
 
 
-def sharded_zeros(policy: ShardingPolicy, cache):
+def _zeros(shape, dtype, mesh, placements, device) -> DTensor:
+    """``torch.distributed.tensor.zeros`` on ``device``: this rank's shard
+    of a zeroed tensor of ``shape``."""
+    local, _ = local_shape_and_offset(shape, mesh, placements)
+    return wrap(torch.zeros(local, dtype=dtype, device=device), mesh,
+                placements, shape)
+
+
+def sharded_zeros(policy: ShardingPolicy, cache, device=None):
     """A zeroed cache of ``cache``'s shapes (meta tensors will do) as
     DTensors at ``decode_cache_shardings``: each rank allocates its own
-    shards only; ``pos_t`` and ``cross_pos_t`` replicated, with their
+    shards only, on ``device`` (default: the mesh's device type; "meta"
+    for a trace); ``pos_t`` and ``cross_pos_t`` replicated, with their
     values."""
     mesh = policy.mesh
     pl = decode_cache_shardings(policy, cache)
+    device = torch.device(device or mesh.device_type)
 
     def zeros(state, state_pl):
         return None if state is None else type(state)(*(
-            dtensor_zeros(t.shape, dtype=t.dtype, device_mesh=mesh,
-                          placements=n.placements)
+            _zeros(t.shape, t.dtype, mesh, n.placements, device)
             for t, n in zip(state, state_pl)))
 
-    device = torch.device(mesh.device_type)
     pos_t = distribute_tensor(torch.full((1,), cache.pos, dtype=torch.int64,
                                          device=device), mesh,
                               pl.pos_t.placements)

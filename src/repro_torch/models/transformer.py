@@ -396,7 +396,8 @@ class Model(nn.Module):
         if policy is None:
             return init_cache(self.cfg, batch, max_len, filled, self.device)
         return staterules.sharded_zeros(
-            policy, init_cache(self.cfg, batch, max_len, filled, "meta"))
+            policy, init_cache(self.cfg, batch, max_len, filled, "meta"),
+            self.device)
 
     @_serving
     def encode(self, frames):

@@ -199,8 +199,8 @@ def scorecard_markdown(meta: Optional[Dict[str, object]] = None,
                        title: str = "Observability scorecard") -> str:
     """Markdown scorecard from the pieces ``BENCH_obs.json`` stores:
     fleet meta-metrics, the per-tenant rollup, and the calibration
-    audit summary (the reference's ``analysis/perf_report.py`` appends
-    this section to its report; that module is not ported)."""
+    audit summary (``analysis/perf_report.py`` appends this section to
+    its report)."""
     lines = [f"## {title}", ""]
     if meta:
         lines += ["| fleet metric | value |", "| --- | --- |"]
