@@ -89,7 +89,10 @@ Phases, each printing its own lines:
    captures and replays are zeroed before and must show the expected
    counts after (kernels count at capture and at the eager warm-up step
    before it, not at replays); then, at the same cells, the eager loop of
-   ``decode_step`` calls, with its tokens equal to the engine's;
+   ``decode_step`` calls, with its tokens equal to the engine's; the
+   compile gates: ``measure_throughput`` builds nothing (its one capture
+   is held by the counts above), the ``generate`` after it compiles
+   nothing;
 7. one traced prefill, 8 eager decode steps and 8 graph replays per cell
    (torch.profiler): the device's busy share, the kernels that take its
    time and the port's own kernels' share; the captured step must hold 65
@@ -188,6 +191,8 @@ Phases, each printing its own lines:
     refit one ``gbt_grow`` launch a fit), the predictions then within
     1e-6 of a from-scratch registry fit on the card; (e) printed, not a
     gate: the simulator's H100 profile beside phase [8]'s measured rows;
+    gates: (b)'s runs compile nothing, (d)'s epochs stay within the first
+    one's compile count + 2, and ``nan_guard`` passes (d)'s predictions;
 17. the observability layer, ``benchmarks/run.py``'s ``obs_engine`` at
     its full size (three tenants over 600 s, 33,277 requests, the
     deployment of (16) (b)): (a) the fleet engine untraced and traced at
@@ -244,24 +249,27 @@ Phases, each printing its own lines:
     memory, printed (records, not gates); one more policy prefill and
     training step each counted under ``launch/cost.py::StepCost`` (its
     FLOPs and the call's peak memory, for [21]); the group destroyed;
-21. (run before [20]) the dry run (``launch/dryrun.py``,
-    ``analysis/``), in a subprocess (``chip_smoke.py --dryrun-phase
-    OUT``: one process cannot hold phase [19]'s NCCL group and a
-    256-rank fake group) that sees no card and runs beside phases [3]
-    on, started after [2]'s build; [21] reads its results: (a) ``perf_report``'s three
-    cells (qwen2.5-32b decode_32k, llama3.2-3b prefill_32k,
-    llama4-maverick train_4k) traced as rank 0 of a 256-rank fake group
-    on the (16, 16) mesh over meta tensors, full, u1 and u2, auto and
-    baseline policy, on this machine's torch: every record ok, the
-    ``report()`` table printed, the records copied to
-    ``chiprun_out/dryrun/``; (b) phase [19]'s prefill and training step
-    traced on a fake world of one rank: the traced FLOPs equal to those
-    counted over the real call, the traced peak (arguments plus temp)
-    within 10% of the real call's (its arguments plus what it allocated
-    beyond what was live before it), the measured ms at least the
-    compute term (FLOPs over 989 TFLOP/s), the memory term printed; (c)
-    the K1-K3 launch counters, and the ``kernels`` line's counts,
-    unchanged by the phase (the traces launch nothing);
+21. (run before [20]) the dry run (``launch/dryrun.py``, ``analysis/``)
+    in a subprocess (``chip_smoke.py --dryrun-phase OUT``: one process
+    cannot hold phase [19]'s NCCL group and a 256-rank fake group) that
+    sees no card and runs beside phases [3] on, started after [2]'s
+    build; [21] reads its results: (a) ``perf_report``'s three cells
+    (qwen2.5-32b decode_32k, llama3.2-3b prefill_32k, llama4-maverick
+    train_4k) traced as rank 0 of a 256-rank fake group on the (16, 16)
+    mesh over meta tensors, full, u1 and u2, auto and baseline policy, on
+    this machine's torch: every record ok, the ``report()`` table
+    printed, the records copied to ``chiprun_out/dryrun/``; (b) phase
+    [19]'s prefill and training step traced on a fake world of one rank:
+    the traced FLOPs equal to those counted over the real call, the traced
+    peak (arguments plus temp) within 10% of the real call's (its
+    arguments plus what it allocated beyond what was live before it), the
+    measured ms at least the compute term (FLOPs over 989 TFLOP/s), the
+    memory term printed; (c) the K1-K3 launch counters, and the
+    ``kernels`` line's counts, unchanged by the phase;
+22. (run before [21]) the port's checker (``repro_torch.staticcheck``) on
+    this machine's Python and torch over ``src/repro_torch``, this script
+    and ``tests/test_torch_*.py``: 0 findings, and a planted seedless
+    ``torch.randn`` caught as exactly one ``unseeded-rng`` finding;
 20. the kernel table as one JSON line (``main_path`` false for
     ``gbt_split``, which only the level path launches: it must show no
     launch on the main path), then ``{"ok": true, ...}`` last.
@@ -1300,8 +1308,7 @@ def decode_graph_checks(gen):
                 return _decode_split(q, k, v, pos, n_split)
             call(pos_t)
             torch.cuda.synchronize()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph := torch.cuda.CUDAGraph()):  # repro-torch-check: disable=jit-in-loop -- one capture a (B, heads, dtype) case: the capture is what this check tests
                 out = call(pos_t)
             plan = n_split or da_kernel.split_count(
                 b, kv, h // kv, da_kernel.sm_count(0))
@@ -2666,12 +2673,32 @@ def _engine_parity(heap, fleet):
     return ok, "; ".join(parts)
 
 
+def gated(budget, label, fn):
+    """Runs ``fn()`` under ``assert_max_compiles(budget, label)``: returns
+    its result, the block's ``CompileReport`` and whether the block stayed
+    within the budget (a breach is printed, not raised, so that the other
+    phases still run)."""
+    from repro_torch.staticcheck.tracers import (CompileBudgetExceeded,
+                                                 assert_max_compiles)
+    out = None
+    try:
+        with assert_max_compiles(budget, label=label) as report:
+            out = fn()
+    except CompileBudgetExceeded as err:
+        print(err)
+        return out, report, False
+    return out, report, True
+
+
 def online_loop(smi, device=None):
     """Phase 16 (d): benchmarks/run.py's online_engine closed loop at its
     full size, the port's OnlineALA on ``device`` (None: the card): each
     epoch serves one model's slice of its MMPP trace through the heap
     engine with an ALAAutoscaler attached to the engine, adapts the
-    steady-state windows and ingests them.  Returns (ok, K4 launches)."""
+    steady-state windows and ingests them, each ingest under the
+    reference's compile budget (``benchmarks/run.py``'s online_engine: the
+    first ingested epoch's count + 2), and passes both predictions through
+    ``nan_guard``.  Returns (ok, K4 launches)."""
     from repro_torch.configs import get_config
     from repro_torch.core.annealing import SAConfig
     from repro_torch.core.dataset import Dataset
@@ -2685,6 +2712,7 @@ def online_loop(smi, device=None):
     from repro_torch.serving.autoscaler import ALAAutoscaler
     from repro_torch.serving.simulator import SimConfig, simulate
     from repro_torch.serving.traces import TraceConfig, make_trace, mix
+    from repro_torch.staticcheck.tracers import count_compiles, nan_guard
     archs, n_epochs = ONLINE_LOOP["archs"], ONLINE_LOOP["n_epochs"]
     epoch_s = ONLINE_LOOP["epoch_s"]
     ref_ii, ref_oo = 512, 192
@@ -2715,19 +2743,21 @@ def online_loop(smi, device=None):
             arrival="mmpp", rate=0.7 * cap, burst_rate=2.0 * cap,
             horizon_s=n_epochs * epoch_s,
             shape_mix=mix(("chat", 0.7), ("generate", 0.3)), seed=29))
-    checks = {"conservation": True}
+    checks = {"conservation": True, "compile budget": True}
     _zero_k4()
     t0 = time.perf_counter()
-    rep = eng.ingest(Dataset.from_rows(seed_rows), **gbt_kw)
+    with count_compiles("[16] (d) epoch 0") as cr:
+        rep = eng.ingest(Dataset.from_rows(seed_rows), **gbt_kw)
     print(f"[16] (d) epoch 0: {rep.n_rows} calibration rows, "
           f"{len(rep.refit)} refits, ingest {time.perf_counter() - t0:.3f} s "
           f"(registry {rep.registry_s:.3f} s, uncertainty "
-          f"{rep.uncertainty_s:.3f} s) [{smi}]")
+          f"{rep.uncertainty_s:.3f} s), {cr.count} compilations [{smi}]")
     for arch in archs:
         combo = eng.combo_of(next(r for r in seed_rows if r["model"] == arch))
         scalers[arch] = ALAAutoscaler(ala=eng.ala_for(combo), online=eng,
                                       combo=combo, max_replicas=4)
     n_epochs_ingested = 0
+    budget, epoch_compiles = None, []
     for e in range(n_epochs):
         arch = archs[e % len(archs)]
         tr = traces[arch].slice(e * epoch_s, (e + 1) * epoch_s)
@@ -2748,9 +2778,16 @@ def online_loop(smi, device=None):
             print(f"[16] (d) epoch {e + 1}: {arch}, {len(tr)} requests, no "
                   f"steady-state window")
             continue
+        # the reference's gate: the first ingested epoch sets the budget,
+        # its compile count + 2
         t0 = time.perf_counter()
-        rep = eng.ingest(delta, **gbt_kw)
+        rep, cr, within = gated(budget, f"[16] (d) online epoch {e + 1}",
+                                lambda: eng.ingest(delta, **gbt_kw))
         ingest_s = time.perf_counter() - t0
+        checks["compile budget"] = checks["compile budget"] and within
+        epoch_compiles.append(cr.count)
+        if budget is None:
+            budget = cr.count + 2
         n_epochs_ingested += 1
         drifted = {c[0]: d.drifted for c, d in rep.drift.items()}
         print(f"[16] (d) epoch {e + 1}: {arch}, {len(tr)} requests "
@@ -2771,7 +2808,14 @@ def online_loop(smi, device=None):
     t0 = time.perf_counter()
     scratch = ModelRegistry(device=device).fit(full, **gbt_kw)
     scratch_s = time.perf_counter() - t0
-    p_inc, p_scr = eng.predict(full), scratch.predict(full)
+    try:
+        p_inc = nan_guard(eng.predict, label="online.predict")(full)
+        p_scr = nan_guard(scratch.predict, label="scratch.predict")(full)
+        checks["nan_guard on both predictions"] = True
+    except FloatingPointError as err:
+        print(f"[16] (d) {err}")
+        checks["nan_guard on both predictions"] = False
+        p_inc, p_scr = eng.predict(full), scratch.predict(full)
     parity = float(np.abs(p_inc - p_scr).max())
     checks[f"incremental = from-scratch fit within {ONLINE_LOOP['parity']}"] \
         = bool(np.all(np.isfinite(p_inc))) and parity <= ONLINE_LOOP["parity"]
@@ -2780,7 +2824,9 @@ def online_loop(smi, device=None):
           f" levels), gbt_hist {k4['gbt_hist']}, gbt_split {k4['gbt_split']}"
           f", host levels {k4['host_levels']}, LM solves {k4['solves']}; "
           f"predictions against a from-scratch registry fit ({scratch_s:.3f}"
-          f" s): max abs difference {parity!r}; checks: "
+          f" s): max abs difference {parity!r}; compilations an ingested "
+          f"epoch {epoch_compiles} (budget {budget} after the first); "
+          f"checks: "
           + ", ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in
                       checks.items()))
     return all(checks.values()), launches
@@ -2831,11 +2877,14 @@ def serving_phase(smi, llama_rows, device=None):
     for backend in ("numpy", "torch"):
         sim = VectorFleetSimulator(tr, SimConfig(traj_backend=backend,
                                                  device=device, **base))
+        # the reference's gate on its fleet_engine rerun: nothing compiles
         t0 = time.perf_counter()
-        res = sim.run()
+        res, cr, checks[f"(b) {backend} run compiles nothing"] = gated(
+            0, f"[16] (b) fleet_engine, {backend} trajectories", sim.run)
         wall = walls[backend] = time.perf_counter() - t0
         runs[backend] = res
-        print(f"[16] (b) {backend} trajectories: {wall:.3f} s wall, "
+        print(f"[16] (b) {backend} trajectories: {cr.count} compilations, "
+              f"{wall:.3f} s wall, "
               f"{res.n_events} events ({res.n_events / wall:.0f} a second), "
               f"{sim.traj_calls} trajectory calls of "
               f"{sim.traj_steps / max(sim.traj_calls, 1):.1f} steps on "
@@ -4102,6 +4151,31 @@ def dryrun_start():
     return proc, tmp
 
 
+def staticcheck_phase() -> bool:
+    """Phase [22]: the port's checker (``repro_torch.staticcheck``) over its
+    package, this script and the port's tests must report nothing, and a
+    seedless ``torch.randn`` planted in an in-memory source must give
+    exactly one ``unseeded-rng`` finding (a checker that checks nothing
+    fails).  Returns ok."""
+    from repro_torch.staticcheck import check_paths, check_source
+    paths = [REPO / "src" / "repro_torch", REPO / "chip_smoke.py",
+             *sorted((REPO / "tests").glob("test_torch_*.py"))]
+    t0 = time.perf_counter()
+    res = check_paths(paths, root=REPO)
+    secs = time.perf_counter() - t0
+    for f in res.findings:
+        print(f"[22]   {f.format()}")
+    planted = [(f.rule, f.line) for f in check_source(
+        "import torch\nx = torch.randn(4, 8)\n",
+        "src/repro_torch/core/planted.py")]
+    ok = res.ok and res.n_files > 100 and planted == [("unseeded-rng", 2)]
+    print(f"[22] repro-torch-check on Python {sys.version.split()[0]}, torch "
+          f"{torch.__version__}: {len(res.findings)} findings in "
+          f"{res.n_files} files in {secs:.3f} s (host); a planted seedless "
+          f"torch.randn gives {planted}: {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def dryrun_phase(smi, started, real, launches):
     """Phase [21]: waits for ``dryrun_start``'s process (``started``), then
     copies its records to ``chiprun_out/dryrun/``.  Gates: (a) every record
@@ -4194,6 +4268,7 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref, rmsnorm_ref
     from repro_torch.models.transformer import Model
+    from repro_torch.staticcheck.tracers import count_compiles
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4444,10 +4519,15 @@ def main() -> int:
         for fn in counters:
             fn.launches = 0
         engine.captures = engine.replays = 0
-        rows = engine.measure_throughput(ii, oo, bb, reps=REPS)
+        with count_compiles(f"[6] measure_throughput {ii} {oo} {bb}") as cr:
+            rows = engine.measure_throughput(ii, oo, bb, reps=REPS)
         prompts = np.random.default_rng(7).integers(
             0, cfg.vocab_size, (bb, ii), dtype=np.int32)
-        tokens = engine.generate(prompts, oo).tokens
+        # the same signature again: nothing may compile
+        tokens, again, within = gated(
+            0, f"[6] generate ii={ii} oo={oo} bb={bb}",
+            lambda: engine.generate(prompts, oo).tokens)
+        compiled_ok = within and cr.n_builds == 0 and cr.n_frames == 0
         grew = [fn.launches for fn in counters]
         for fn in counters:
             launches[fn.__name__] += fn.launches
@@ -4465,7 +4545,7 @@ def main() -> int:
             for r in range(1 + REPS)][1:]
         same = np.array_equal(eager_generate(model, prompts, oo)["tokens"],
                               tokens)
-        ok6 = ok6 and counts_ok and same and all(
+        ok6 = ok6 and counts_ok and same and compiled_ok and all(
             r["thpt"] > 0 and r["prefill_s"] > 0 and r["decode_s"] > 0
             for r in rows + eager)
         for what, rs in (("graphed", rows), ("eager", eager)):
@@ -4482,6 +4562,12 @@ def main() -> int:
               f"after one eager warm-up step); replays {engine.replays}, "
               f"expected {pre * (oo - 1)}; graphed tokens equal the eager "
               f"loop's: {same}: {'ok' if counts_ok and same else 'FAIL'}")
+        print(f"[6] compile gates: measure_throughput captured "
+              f"{cr.n_captures} graph(s), built {cr.n_builds} sources, "
+              f"compiled {cr.n_frames} "
+              f"frames; generate at the same signature compiled "
+              f"{again.count} (budget 0): "
+              f"{'ok' if compiled_ok else 'FAIL'}")
     print(f"[6] main path launches: {launches}, decode steps replayed "
           f"{replays}: {'ok' if ok6 else 'FAIL'}")
 
@@ -4674,6 +4760,9 @@ def main() -> int:
     print(f"[19] sharding policy: {'ok' if ok19 else 'FAIL'} "
           f"({time.perf_counter() - t0:.1f} s)")
 
+    # -- 22. the port's static checker on this machine's Python and torch ----
+    ok22 = staticcheck_phase()
+
     # -- 21. the dry run: the policy's three cells traced on a 256-rank fake
     # mesh, and phase [19]'s calls traced on one fake rank against their
     # real counts ------------------------------------------------------------
@@ -4727,7 +4816,7 @@ def main() -> int:
               "[15] encoder-decoder and vision": ok15,
               "[16] serving stack": ok16, "[17] observability": ok17,
               "[18] training": ok18, "[19] sharding policy": ok19,
-              "[21] dry run": ok21,
+              "[22] static checker": ok22, "[21] dry run": ok21,
               "[20] launches": all(
                   (k["launches"] > 0) == k["main_path"] for k in kernels)}
     ok = all(phases.values())

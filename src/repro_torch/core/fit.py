@@ -48,14 +48,9 @@ def _row_sums(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
-def _solve3(A, b):
-    """Closed-form 3x3 solve (adjugate / Cramer) of a batch of systems.
-
-    ``A`` is a 3x3 nest of (G,) tensors, ``b`` a triple of them.
-    Elementwise arithmetic only, so — unlike a batched LU, which rounds
-    differently for different batch sizes — the result for one system is
-    bit-identical whatever else shares the batch.
-    """
+def _adjugate(A):
+    """det(A) and the rows of A's adjugate, for a 3x3 nest ``A`` of
+    tensors or of numpy scalars alike: products and sums only."""
     c00 = A[1][1] * A[2][2] - A[1][2] * A[2][1]
     c01 = A[1][2] * A[2][0] - A[1][0] * A[2][2]
     c02 = A[1][0] * A[2][1] - A[1][1] * A[2][0]
@@ -66,13 +61,24 @@ def _solve3(A, b):
     c20 = A[0][1] * A[1][2] - A[0][2] * A[1][1]
     c21 = A[0][2] * A[1][0] - A[0][0] * A[1][2]
     c22 = A[0][0] * A[1][1] - A[0][1] * A[1][0]
+    return det, ((c00, c10, c20), (c01, c11, c21), (c02, c12, c22))
+
+
+def _solve3(A, b):
+    """Closed-form 3x3 solve (adjugate / Cramer) of a batch of systems.
+
+    ``A`` is a 3x3 nest of (G,) tensors, ``b`` a triple of them.
+    Elementwise arithmetic only, so — unlike a batched LU, which rounds
+    differently for different batch sizes — the result for one system is
+    bit-identical whatever else shares the batch.
+    """
+    det, adj = _adjugate(A)
     singular = det == 0
     safe = torch.where(singular, torch.ones_like(det), det)
     zero = torch.zeros_like(det)
     return tuple(torch.where(singular, zero, (r0 * b[0] + r1 * b[1]
                                               + r2 * b[2]) / safe)
-                 for r0, r1, r2 in ((c00, c10, c20), (c01, c11, c21),
-                                    (c02, c12, c22)))
+                 for r0, r1, r2 in adj)
 
 
 def _residuals(a, b, c, x, y, w):
@@ -243,4 +249,46 @@ def fit_exponential_masked(theta0, X, Y, W, device=None):
     theta = _solve_padded(T0p, Xp, Yp, Wp, device)[:G]
     theta[:, 0] *= s
     theta[:, 2] *= s
+    return theta
+
+
+def fit_exponential_numpy(bb, thpt, theta0, iters: int = 200) -> np.ndarray:
+    """Scalar float64 LM in numpy, the oracle of the property tests: the
+    reference's step for step (scaling, damping x0.5 / x2.5 clipped to
+    [1e-10, 1e8], the bounds), its 3x3 system solved by ``_solve3``'s
+    cofactor expression on float64 scalars (a singular system takes no
+    step) instead of ``np.linalg.solve``.  Returns (a, b, c), float64."""
+    theta = np.asarray(theta0, np.float64).copy()
+    mu = _MU0
+    x = np.asarray(bb, np.float64)
+    y = np.asarray(thpt, np.float64)
+    s = max(float(np.max(np.abs(y))), 1e-9)
+    y = y / s
+    theta[0] /= s
+    theta[2] /= s
+
+    def resid(t):
+        return (t[2] - t[0] * np.exp(-t[1] * x)) - y
+
+    for _ in range(iters):
+        r = resid(theta)
+        e = np.exp(-theta[1] * x)
+        J = np.stack([-e, theta[0] * x * e, np.ones_like(x)], axis=1)
+        A = J.T @ J + mu * np.eye(3)
+        rhs = -(J.T @ r)
+        det, adj = _adjugate(A)
+        delta = np.zeros(3) if det == 0 else np.array(
+            [(r0 * rhs[0] + r1 * rhs[1] + r2 * rhs[2]) / det
+             for r0, r1, r2 in adj])
+        cand = theta + delta
+        cand[0] = max(cand[0], 1e-8)
+        cand[1] = min(max(cand[1], 1e-8), 50.0)
+        cand[2] = max(cand[2], 0.0)
+        if np.sum(resid(cand) ** 2) < np.sum(r ** 2):
+            theta, mu = cand, mu * 0.5
+        else:
+            mu *= 2.5
+        mu = float(np.clip(mu, 1e-10, 1e8))
+    theta[0] *= s
+    theta[2] *= s
     return theta

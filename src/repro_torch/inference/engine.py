@@ -31,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.inference.sampling import sample
 from repro_torch.models import io
 from repro_torch.models.transformer import Model
+from repro_torch.compiles import note_compile
 
 
 @dataclasses.dataclass
@@ -58,7 +59,8 @@ class DecodeGraph:
     ``model.prefill(..., cache=graph.cache)`` (with the frames where the
     model takes them: their cross K/V land in the captured buffers too).
     The launch counters of the captured kernels tick once, at capture,
-    not at replays."""
+    not at replays; a capture counts as one compilation for
+    ``staticcheck.tracers.assert_max_compiles``."""
 
     @torch.inference_mode()
     def __init__(self, model: Model, batch: int, max_len: int):
@@ -86,6 +88,7 @@ class DecodeGraph:
         with torch.cuda.graph(self.graph):
             self.logits = self._step()
         self.graph.instantiate()
+        note_compile("capture")
         self.cache.zero_()
         torch.cuda.synchronize(dev)
 

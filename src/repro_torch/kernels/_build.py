@@ -19,6 +19,8 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
+from repro_torch.compiles import note_compile
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd",
@@ -47,7 +49,9 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compiles every source of ``names`` not built yet, one ``nvcc`` per
     source, all started together.  Returns each compiled source's
-    ``-Xptxas -v`` report; raises with the compiler's output on failure."""
+    ``-Xptxas -v`` report; raises with the compiler's output on failure.
+    Each source compiled counts as one compilation for
+    ``staticcheck.tracers.assert_max_compiles``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     jobs = {}
@@ -68,6 +72,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             if proc.returncode == 0:
                 out.with_suffix(".log").write_text(logs[name])
                 os.replace(tmp, out)
+                note_compile("build")
             else:
                 failed.append(f"nvcc failed on {name}.cu:\n{logs[name]}")
         if failed:

@@ -473,6 +473,27 @@ def test_engine_replays_the_graph_and_gives_the_eager_tokens(cuda,
     assert (engine.captures, engine.replays) == (2, 18)
 
 
+def test_engine_captures_once_a_signature_under_the_compile_gate(cuda):
+    """The tracers count the engine's decode-graph captures: one for a new
+    signature, none at the same signature again."""
+    from repro_torch.inference.engine import ServingEngine
+    from repro_torch.kernels import _build
+    from repro_torch.staticcheck.tracers import (assert_max_compiles,
+                                                 count_compiles)
+    _build.build()  # a build inside the gate would count too
+    cfg = get_smoke_config("llama3.1-8b").scaled(compute_dtype=torch.bfloat16)
+    model = Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+    engine = ServingEngine(model)
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 12))
+    with count_compiles("first signature") as rep:
+        engine.generate(prompts, 9)
+    assert (rep.n_captures, rep.n_builds, rep.n_frames) == (1, 0, 0)
+    assert engine.captures == 1
+    with assert_max_compiles(0, label="same signature") as rep:
+        engine.generate(prompts, 9)
+    assert rep.count == 0 and engine.captures == 1
+
+
 def _hist_inputs(seed, L, n, f, n_nodes, n_bins):
     """Seeded (bins, grad, hess, node) with ids out of range mixed in."""
     rng = np.random.default_rng(seed)
