@@ -1488,14 +1488,15 @@ def k1_timings(gen, rows, d):
     return out
 
 
-def k2_timing(gen, bb, sq, sk, h, kv, dh, causal):
+def k2_timing(gen, bb, sq, sk, h, kv, dh, causal, lse=False):
     """K2 at ``bb`` sequences of ``sq`` query rows against ``sk`` key rows,
     bf16, timed beside its plain version and SDPA (whose ``is_causal``
-    is the same top-left mask where Sq != Sk).  The bound counts each
-    input read once, the output written once, and the products of the
-    (row, key) pairs the mask keeps."""
+    is the same top-left mask where Sq != Sk); with ``lse`` as training
+    calls it, keeping each row's log-sum-exp (checked is the output).  The
+    bound counts each input read once, the outputs written once, and the
+    products of the (row, key) pairs the mask keeps."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    nbytes = 2 * bb * (2 * sq * h + 2 * sk * kv) * dh
+    nbytes = 2 * bb * (2 * sq * h + 2 * sk * kv) * dh + 4 * bb * h * sq * lse
     sets = [(_randn(gen, (bb, sq, h, dh), BF16),
              _randn(gen, (bb, sk, kv, dh), BF16),
              _randn(gen, (bb, sk, kv, dh), BF16))
@@ -1503,6 +1504,8 @@ def k2_timing(gen, bb, sq, sk, h, kv, dh, causal):
     q, k, v = sets[0]
 
     def fa(q, k, v):
+        if lse:
+            return fa_ops.flash_attention_lse(q, k, v, causal=causal)[0]
         return fa_ops.flash_attention(q, k, v, causal=causal)
 
     def fa_plain(q, k, v):
@@ -1517,7 +1520,7 @@ def k2_timing(gen, bb, sq, sk, h, kv, dh, causal):
     return dict(
         name="flash_attention",
         shape=(f"B{bb} {rows} H{h} KV{kv} Dh{dh} bf16"
-               + ("" if causal else " full")),
+               + ("" if causal else " full") + (" with lse" if lse else "")),
         check=(fa(q, k, v), fa_plain(q, k, v)),
         ms=time_ms(fa, sets), plain_ms=time_ms(fa_plain, sets),
         library_ms=time_ms(fa_lib, sets),
@@ -4297,20 +4300,26 @@ def main() -> int:
             print(f"[2]   {src}: {fn}: {regs} registers, {spill} B spilled"
                   f"{smem}")
     # the tensor-core gate: every bf16 instantiation of K2 runs its
-    # products on the tensor cores
+    # products on the tensor cores and spills no register
     fa_so = _build.load("flash_attention")
     mma = {_kernel_name(k): n for k, n in
            _build.tensor_core_counts("flash_attention").items()}
-    ok2 = bool(mma) and all(n > 0 for k, n in mma.items() if "bf16" in k) \
-        and sum("bf16" in k for k in mma) == len(_build.HEAD_DIMS)
+    fa_regs = {_kernel_name(k): r for k, r in
+               _build.ptxas_report("flash_attention").items()}
+    fwd16 = [k for k in mma if "bf16" in k]
+    ok2 = len(fwd16) == len(_build.HEAD_DIMS) and all(
+        mma[k] > 0 and fa_regs.get(k, (0, -1))[1] == 0 for k in fwd16)
     for k, n in sorted(mma.items()):
         dtype = 1 if "bf16" in k else 0
         dh = int(re.search(r"(\d+)>$", k)[1])
+        regs, spill = fa_regs.get(k, ("?", "?"))
         print(f"[2]   flash_attention: {k}: {n} HMMA/HGMMA instructions, "
+              f"{regs} registers at launch, {spill} B spilled, "
+              f"{fa_so.flash_attention_threads(dtype)} threads and "
               f"{fa_so.flash_attention_smem_bytes(dtype, dh)} B of dynamic "
               f"shared memory a block")
-    print(f"[2] tensor-core gate (HMMA/HGMMA in every bf16 flash_attention "
-          f"kernel): {'ok' if ok2 else 'FAIL'}")
+    print(f"[2] tensor-core gate (HMMA/HGMMA and no spill in every bf16 "
+          f"flash_attention kernel): {'ok' if ok2 else 'FAIL'}")
     # K2's backward: HGMMA (wgmma) in every bf16 dK/dV and dQ kernel, and
     # no register spilled there
     kinds = _build.tensor_core_kinds("flash_attention_bwd")
@@ -4462,6 +4471,9 @@ def main() -> int:
         # decode attention at the last step: the cache holds ii + oo - 1
         timings.append(k3_timing(gen, bb, ii + oo, h, kv, dh, smi,
                                  by_split=True))
+    # K2 at qwen3-0.6b's training shape, keeping the rows' lse as the
+    # training step's forward does
+    timings.append(k2_timing(gen, *K2_BWD_CASES[0], lse=True))
     # K3 at the newer configs' groups, at the first cell's decode step
     ii, oo, bb = CELLS[0]
     timings += [k3_timing(gen, bb, ii + oo, 8 * g, 8, dh, smi)

@@ -14,40 +14,58 @@
 // llama3.1-8b (B 8, S 512 and B 32, S 128; H 32, KV 8, Dh 128, bf16) the
 // bytes are 4,096 tokens x (2H + 2KV) x Dh x 2 B = 83.9 MB: 0.025 ms at
 // 3.35 TB/s, against 0.017 ms (S 512) and 0.004 ms (S 128) of operations
-// on the bf16 tensor cores.  Bytes bind; operations bind only at longer S.
+// on the bf16 tensor cores.  Bytes bind; operations bind only at longer S:
+// at whisper's encoder (B 16, S 1,500, 16 heads, Dh 64, full) 0.149 ms of
+// operations against 0.059 ms of bytes, and at qwen3-0.6b's training shape
+// (B 4, S 4,096, 16/8 heads, Dh 128, causal) 0.278 ms against 0.060.
 //
-// The bf16 kernel (flash_fwd_bf16), the one the serving path runs, is
-// built to stream those bytes once and keep the tensor cores off the
-// critical path:
-//  - both products run as warpgroup wgmma on the bf16 tensor cores with
-//    fp32 accumulation: s = Q K^T as m64n64k16 with both operands in
-//    shared memory, acc += P V as m64n{Dh}k16 with P from registers;
+// The bf16 kernel (flash_fwd_bf16), the one serving and training run,
+// is built to keep the tensor cores fed and its exponentials under them:
+//  - both products run as warpgroup wgmma with fp32 accumulation: s = Q K^T
+//    as m64n64k16 with Q's fragments in registers (read once an item with
+//    ldmatrix, which halves the shared-memory reads of the product that
+//    had both operands there) and K in shared memory; acc += P V as
+//    m64n{Dh}k16 with P from registers;
 //  - operands stay bf16 in shared memory, in the 128-byte (64- or 32-byte
-//    at small Dh) swizzle that TMA writes and wgmma reads, so 8 rows never
-//    share a bank group;
-//  - one thread starts TMA loads (cp.async.bulk.tensor) of 64-key K and V
-//    tiles into a ring of two stages with mbarriers (K full, V full,
-//    empty; QK^T starts before V has landed).  It refills a stage once
-//    every warp has released it, so the copy of tile j + 1 runs under the
-//    products on tile j, and warpgroups drift apart instead of meeting at
-//    a block barrier each tile.  TMA reads nothing outside the (B, Sq |
-//    Sk, H | KV, Dh) views and fills rows past their ends with zeros (0 x
-//    NaN is NaN, so stale bits must never land);
-//  - the online softmax runs in registers on the accumulator fragments
-//    (row max and sum over the quad of lanes sharing a row, log2 domain);
-//    P is rounded to bf16 in registers as the A operand of P V, so scores
-//    never touch shared memory;
-//  - a block is two warpgroups of 64 query rows, 128 positions of one
-//    head, so each K/V tile loaded serves 128 rows; at 128 registers and
-//    97 KB of shared memory two blocks fit on an SM, and one's loads
-//    overlap the other's products.  Grouped-query reuse (the two
-//    warpgroups as two query heads of one KV head) was measured no faster
-//    on the H100, so a block takes one head;
-//  - causal: tiles above the diagonal are skipped, only the diagonal tile
-//    is masked; query tiles are handed out heaviest first (the tile index
-//    is the grid's slowest axis, reversed).
-// A producer warpgroup with setmaxnreg, intra-warpgroup overlap of the
-// next QK^T with this tile's softmax, and a persistent grid are later work.
+//    at small Dh) swizzle that TMA writes and wgmma reads;
+//  - warp-specialised: three warpgroups, one block an SM.  setmaxnreg gives
+//    the producer's warpgroup 24 registers a thread and the two consumer
+//    warpgroups 240 (64,512 of the SM's 65,536).  One producer thread keeps
+//    TMA loads (cp.async.bulk.tensor) of Q and of 64-key K and V tiles in
+//    flight, into a ring as deep as shared memory holds (5 stages at Dh
+//    128, 8 below), with full and empty mbarriers; K and V land on
+//    barriers of their own.  A consumer warp releases a stage by arriving
+//    at its empty barrier, never at a block barrier.  TMA reads nothing
+//    outside the (B, Sq | Sk, H | KV, Dh) views and fills rows past their
+//    ends with zeros (0 x NaN is NaN, so stale bits must never land);
+//  - inside a consumer warpgroup, tile j's online softmax runs under tile j
+//    - 1's P V and tile j + 1's QK^T, issued together just before it (its
+//    scores in a second register fragment, so a consumer holds three
+//    tiles and the ring needs three stages or more).  A step issues its
+//    products and waits for them with no branch in between, or ptxas
+//    serialises them (C7513): the diagonal and ragged tiles' elementwise
+//    mask is a copy of the step of its own, chosen for the warpgroup, and
+//    acc's rescale is unconditional (x 1 is exact);
+//  - the softmax runs in registers on the accumulator fragments (row max
+//    and sum over the quad of lanes sharing a row, log2 domain, the scale
+//    in one fma); P is rounded to bf16 in registers as the A operand of
+//    P V, so scores never touch shared memory;
+//  - persistent: min(items, SMs) blocks, each walking the work items (128
+//    query rows of one head of one sequence) blockIdx.x, + gridDim.x, ...,
+//    heaviest first (the query tile the slowest index, from the last), by
+//    a static stride: no counter, no workspace.  The ring's and Q's
+//    mbarrier parities run on across items; the next item's Q loads once
+//    both consumers hold this item's in registers, under this item's
+//    products and epilogue.  O is staged in a tile of its own (no TMA
+//    reads or writes it, so no proxy fence is needed), 16 bytes a lane;
+//  - an item's two 64-row halves alternate between the consumers: under
+//    the causal mask the upper half reads one tile fewer (tiles wholly
+//    above the diagonal are never loaded), so over two items both do the
+//    same work, and the ring lets them drift apart instead of waiting.
+// None of this moves a rounding point: the arithmetic and its order are
+// emulate.attention_bf16_emulated's.  Measured on the H100 and left out
+// (PERF.md): ping-pong between the consumers (named barriers around each
+// step's products), up to 6% slower at four of the six timed shapes.
 //
 // The fp32 kernel (flash_fwd_fp32) keeps the first port's FMA body on the
 // CUDA cores: the checks hold fp32 to 2e-5, which TF32 products would not
@@ -237,233 +255,414 @@ __global__ void __launch_bounds__(NT) flash_fwd_fp32(FlashParams p) {
 
 // ---------------------------------------------------------------- bf16 --
 
-constexpr int NWG = 2;          // warpgroups per block, 64 query rows each
-constexpr int GNT = 128 * NWG;  // threads per block
-constexpr int GK = 64;          // keys per K/V tile
-constexpr int STAGES = 2;       // K/V ring depth
+constexpr int CWG = 2;                // consumer warpgroups, 64 query rows each
+constexpr int GNT = 128 * (CWG + 1);  // threads a block, the producer's too
+constexpr int ROWS = 64 * CWG;        // query rows of a work item
+constexpr int GK = 64;                // keys per K/V tile
+constexpr int PRODUCER_REGS = 24;     // registers a thread after setmaxnreg
+constexpr int CONSUMER_REGS = 240;
+constexpr int MAX_STAGES = 8;         // the K/V ring's depth at most
+constexpr size_t SMEM_MAX = 232448;   // a block's shared memory on Hopper
 
-// Q (64 rows per warpgroup), then STAGES x (K tile, V tile), in the
-// swizzled layout (1024-byte aligned); then the mbarriers: K full, V full
-// and empty per stage, then Q.
+// Q (64 rows per consumer warpgroup), O's staging rows as many, then
+// `stages` x (K tile, V tile), in the swizzled layout (1024-byte aligned);
+// then the mbarriers: K full, V full and empty per stage, Q full, Q empty.
+template <int DH>
+__host__ __device__ constexpr size_t smem_for(int stages) {
+  return 1024 + (2 * ROWS + 2 * stages * GK) * DH * sizeof(bf16) +
+         (3 * stages + 2) * sizeof(uint64_t);
+}
+// The K/V ring's depth: as many stages as fit, at most MAX_STAGES.
+template <int DH>
+__host__ __device__ constexpr int ring_stages() {
+  int n = MAX_STAGES;
+  while (smem_for<DH>(n) > SMEM_MAX) --n;
+  return n;
+}
 template <int DH>
 constexpr size_t wg_smem_bytes() {
-  return 1024 + (64 * NWG + 2 * STAGES * GK) * DH * sizeof(bf16) +
-         (3 * STAGES + 1) * sizeof(uint64_t);
+  return smem_for<DH>(ring_stages<DH>());
 }
 
-// The accumulator of m64nN (PTX ISA): warp w of the warpgroup holds rows
-// 16 w + g and 16 w + g + 8; d[4 i + e] is column 8 i + 2 t + (e & 1) of
-// row g + 8 (e >> 1), the layout of mma.m16n8k16's fragments side by side;
-// A from registers takes mma.m16n8k16's A layout in each warp.
-//
-// A block holds NWG warpgroups of 64 query rows each, NWG x 64 positions
-// of one query head; each K/V tile it loads serves all of them.
-// Thread 0 also starts the TMA loads: it keeps up to STAGES tiles in
-// flight, refilling a stage once every warp has released it, and blocks
-// only when the tile it needs itself is not requested yet; so the warpgroups
-// run apart by up to STAGES - 1 tiles, and one's softmax overlaps
-// another's products.
+// A work item: query rows q0 .. q0 + ROWS - 1 of head h of sequence b.
+struct Item {
+  int q0, h, b;
+};
+
+// Item w of n_q x B x H, heaviest first: the query tile is the slowest
+// index, from the last one, then the sequence, then the head.
+__device__ __forceinline__ Item item_of(int w, int n_q, int H, int B) {
+  const int bh = H * B, r = w % bh;
+  return {(n_q - 1 - w / bh) * ROWS, r % H, r / H};
+}
+
+// The K/V tiles an item's block loads: every one of Sk's, or, causal,
+// those at or left of its last row.
+__device__ __forceinline__ int item_tiles(int q0, const FlashParams& p) {
+  const int n = (p.Sk + GK - 1) / GK;
+  return p.causal ? min(n, (q0 + ROWS - 1) / GK + 1) : n;
+}
+
+// This warp's 16 rows of a warpgroup's 64-row Q tile, every column, as
+// the A fragments of Dh / 16 steps, read with ldmatrix through the tile's
+// swizzle (a 16-byte chunk's index XOR the byte offset's bits 7..).
 template <int DH>
-__global__ void __launch_bounds__(GNT, 2)
-    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, FlashParams p,
-                   Slots sq, Slots sk, Slots sv) {
-  constexpr int CH = DH / 8;  // 16-byte chunks per row
-  constexpr int RB = Swz<DH>::RB, PANEL = 64 * RB / 2;  // elements a panel
-  constexpr uint32_t TILE = GK * DH * sizeof(bf16);
-  static_assert(DH % 16 == 0 && DH <= 128, "unsupported head size");
-
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~uintptr_t{1023});
-  bf16* Ks = Qs + NWG * 64 * DH;     // STAGES x GK x DH
-  bf16* Vs = Ks + STAGES * GK * DH;  // STAGES x GK x DH
-  uint64_t* fullk = reinterpret_cast<uint64_t*>(Vs + STAGES * GK * DH);
-  uint64_t* fullv = fullk + STAGES;
-  uint64_t* empty = fullv + STAGES;
-  uint64_t* qbar = empty + STAGES;
-
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64 * NWG;  // heaviest first
-  const int wq0 = q0 + 64 * wg;  // this warpgroup's positions
-  const int kvh = h / (p.H / p.KV);
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  int n_tiles = (p.Sk + GK - 1) / GK;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + 64 * NWG - 1) / GK + 1);
-
-  // tile j into stage j % STAGES; K and V land on barriers of their own,
-  // so that QK^T need not wait for V
-  auto request = [&](int j) {
-    const int st = j % STAGES;
-    mbar_expect_tx(&fullk[st], TILE);
-    for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
-      tma_load(Ks + st * GK * DH + pn * PANEL, &tk, &fullk[st], pn * RB / 2,
-               j * GK, kvh, b, sk);
-    mbar_expect_tx(&fullv[st], TILE);
-    for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
-      tma_load(Vs + st * GK * DH + pn * PANEL, &tv, &fullv[st], pn * RB / 2,
-               j * GK, kvh, b, sv);
-  };
-  int next = 0;  // thread 0: the first tile not requested yet
-  if (tid == 0) {
-    for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&fullk[st], 1);
-      mbar_init(&fullv[st], 1);
-      mbar_init(&empty[st], 4 * NWG);  // one arrival per warp
-    }
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(qbar, NWG * 64 * DH * sizeof(bf16));
-    for (int w = 0; w < NWG; ++w)
-      for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
-        tma_load(Qs + w * 64 * DH + pn * PANEL, &tq, qbar, pn * RB / 2,
-                 q0 + 64 * w, h, b, sq);
-    for (; next < min(n_tiles, STAGES); ++next) request(next);
+__device__ __forceinline__ void load_q(uint32_t (&qa)[DH / 16][4],
+                                       const bf16* Q, int warp, int lane) {
+  constexpr uint32_t RB = Swz<DH>::RB, MASK = RB / 16 - 1;
+  const uint32_t row = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const char* base = reinterpret_cast<const char*>(Q);
+#pragma unroll
+  for (int kc = 0; kc < DH / 16; ++kc) {
+    const uint32_t byte = 2 * (16 * kc + 8 * (lane >> 4));
+    const uint32_t off = byte / RB * 64 * RB + row * RB + byte % RB;
+    ldmatrix_x4(qa[kc], base + (off ^ (((off >> 7) & MASK) << 4)));
   }
-  __syncthreads();  // the barriers are initialised
+}
 
-  const int row0 = wq0 + 16 * warp + g;  // this thread's rows: row0, +8
-  // K-major Q and K: a 16-deep step moves 32 B along the row, and to the
-  // next panel after RB / 32 steps
-  const uint64_t dq = wg_desc<DH>(Qs + wg * 64 * DH, 16, 8 * RB);
-  auto kstep = [](int kc) {  // in the descriptor's 16-byte units
-    return (kc % (RB / 32)) * 2 + (kc / (RB / 32)) * (64 * RB / 16);
-  };
-  const float scale = p.scale * LOG2E;   // scores in the log2 domain
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[DH / 2];
+// s = Q K^T of one tile: Dh / 16 steps of m64n64k16, Q's fragments in
+// registers, K K-major in shared memory (a 16-deep step moves 32 B along
+// the row, and to the next panel after RB / 32 steps, in the descriptor's
+// 16-byte units).  Committed as one group.
+template <int DH>
+__device__ __forceinline__ void qk_issue(float (&s)[32],
+                                         const uint32_t (&qa)[DH / 16][4],
+                                         const bf16* K) {
+  constexpr int RB = Swz<DH>::RB;
+  const uint64_t dk = wg_desc<DH>(K, 16, 8 * RB);
+  wgmma_fence();
+  wgmma_rs_n64_first(s, qa[0], dk);
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
-  mbar_wait(qbar, 0);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * GK, st = kt % STAGES;
-    if (tid == 0) {  // refill released stages, at most STAGES tiles ahead
-      for (; next < n_tiles && next < kt + STAGES; ++next) {
-        const int parity = (next / STAGES - 1) & 1;
-        if (next > kt && !mbar_test(&empty[next % STAGES], parity)) break;
-        mbar_wait(&empty[next % STAGES], parity);
-        request(next);
-      }
-    }
-    __syncwarp();  // warp 0 meets again before its aligned wgmma
-    mbar_wait(&fullk[st], (kt / STAGES) & 1);
-    if (p.causal && k0 > wq0 + 63) {  // wholly above our rows
-      if (lane == 0) mbar_arrive(&empty[st]);
-      continue;
-    }
-
-    // s = Q K^T: Dh / 16 steps of m64n64k16, both operands K-major
-    const uint64_t dk = wg_desc<DH>(Ks + st * GK * DH, 16, 8 * RB);
-    float s[32];
-    wgmma_fence();
-    wgmma_ss_n64_first(s, dq, dk);
-#pragma unroll
-    for (int kc = 1; kc < DH / 16; ++kc)
-      wgmma_ss_n64(s, dq + kstep(kc), dk + kstep(kc));
-    wgmma_commit();
-    wgmma_wait();
-    reg_fence(s);
-
-    // mask the ragged end and, on the diagonal, the future (only those
-    // tiles; the scale is applied inside the exponent below)
-    if (k0 + GK > p.Sk || (p.causal && k0 + GK > wq0 + 16 * warp)) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-        const int row = row0 + 8 * ((i >> 1) & 1);
-        if (col >= p.Sk || (p.causal && col > row)) s[i] = NEG_INF;
-      }
-    }
-
-    // online softmax on the fragments: a row lives in one quad of lanes;
-    // m is kept scaled, in the log2 domain
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int nn = 0; nn < 8; ++nn)
-        mx = fmaxf(mx, fmaxf(s[4 * nn + 2 * r], s[4 * nn + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx * scale);
-      alpha[r] = fast_exp2(m[r] - m_new);
-      m[r] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[4 * nn + 2 * r + e];
-          x = fast_exp2(fmaf(x, scale, -m_new));
-          sum += x;
-        }
-      l[r] = alpha[r] * l[r] + sum;  // this thread's share; the quad sums last
-    }
-    // rescale acc, unless no row of this warp has a new max (x 1 is exact)
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
-#pragma unroll
-      for (int dn = 0; dn < DH / 8; ++dn) {
-        acc[4 * dn] *= alpha[0];
-        acc[4 * dn + 1] *= alpha[0];
-        acc[4 * dn + 2] *= alpha[1];
-        acc[4 * dn + 3] *= alpha[1];
-      }
-    }
-
-    // acc += P V: P rounded to bf16 in registers as the A operand, V
-    // MN-major; four m64n{Dh}k16 steps of 16 keys
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
-    const uint64_t dv = wg_desc<DH>(Vs + st * GK * DH, GK * RB, 8 * RB);
-    mbar_wait(&fullv[st], (kt / STAGES) & 1);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)  // 16 keys, 16 rows of RB bytes, a step
-      wgmma_rs<DH>(acc, pa[j], dv + j * RB);
-    wgmma_commit();
-    wgmma_wait();
-    reg_fence(acc);
-    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with st
+  for (int kc = 1; kc < DH / 16; ++kc) {
+    const int step = (kc % (RB / 32)) * 2 + (kc / (RB / 32)) * (64 * RB / 16);
+    wgmma_rs_n64(s, qa[kc], dk + step);
   }
+  wgmma_commit();
+}
 
-  // normalise, stage the warp's 16 rows in its own rows of the Q tile
-  // (16-byte chunks XOR-swizzled by row against bank conflicts), and store
-  // them 16 bytes a lane
-  constexpr int SW = CH < 8 ? CH : 8;
-  bf16* Os = Qs + (wg * 64 + warp * 16) * DH;
+// acc += P V: P (bf16, registers) the A operand, V MN-major; four
+// m64n{Dh}k16 steps of 16 keys.  Committed as one group.
+template <int DH>
+__device__ __forceinline__ void pv_issue(float (&acc)[DH / 2],
+                                         const uint32_t (&pa)[4][4],
+                                         const bf16* V) {
+  constexpr int RB = Swz<DH>::RB;
+  const uint64_t dv = wg_desc<DH>(V, GK * RB, 8 * RB);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)  // 16 keys, 16 rows of RB bytes, a step
+    wgmma_rs<DH>(acc, pa[j], dv + j * RB);
+  wgmma_commit();
+}
+
+// -1e30 at keys past Sk and, causal, right of the row: the thread's rows
+// are row0 and row0 + 8, s[i] is key k0 + 8 (i >> 2) + 2 t + (i & 1) of
+// row row0 + 8 ((i >> 1) & 1).  The scale is applied in the exponent.
+__device__ __forceinline__ void mask_tile(float (&s)[32], int k0, int row0,
+                                          const FlashParams& p) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    const int row = row0 + 8 * ((i >> 1) & 1);
+    if (col >= p.Sk || (p.causal && col > row)) s[i] = NEG_INF;
+  }
+}
+
+// The online softmax of one tile on the fragments, in place: a row lives
+// in one quad of lanes; m is kept scaled, in the log2 domain, and s
+// becomes exp2(s scale - m_new); l gathers this thread's share (the quad
+// sums last); alpha is acc's rescale.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float scale) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+      mx = fmaxf(mx, fmaxf(s[4 * nn + 2 * r], s[4 * nn + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * scale);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * nn + 2 * r + e];
+        x = fast_exp2(fmaf(x, scale, -m_new));
+        sum += x;
+      }
+    l[r] = alpha[r] * l[r] + sum;
+  }
+}
+
+// acc *= alpha, every tile: x 1 is exact, and a test here, between a
+// step's products and their wait, was measured slower than the multiplies.
+template <int DH>
+__device__ __forceinline__ void rescale(float (&acc)[DH / 2],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int dn = 0; dn < DH / 8; ++dn) {
+    acc[4 * dn] *= alpha[0];
+    acc[4 * dn + 1] *= alpha[0];
+    acc[4 * dn + 2] *= alpha[1];
+    acc[4 * dn + 3] *= alpha[1];
+  }
+}
+
+// P rounded to bf16 in registers, as four A fragments of 16 keys.
+__device__ __forceinline__ void to_p(uint32_t (&pa)[4][4],
+                                     const float (&s)[32]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+}
+
+// A step's mask, chosen at compile time.
+struct On {
+  static constexpr bool value = true;
+};
+struct Off {
+  static constexpr bool value = false;
+};
+
+// A warp's 16 rows (wrow0..): each row's lse, then acc normalised and
+// rounded once, staged in the warp's own rows of the O tile (16-byte
+// chunks XOR-swizzled by row against bank conflicts) and stored 16 bytes
+// a lane.  Nothing but these stores touches the O tile.
+template <int DH>
+__device__ __forceinline__ void store_item(float (&acc)[DH / 2],
+                                           const float (&m)[2], float (&l)[2],
+                                           bf16* Ow, const FlashParams& p,
+                                           const Item& x, int wrow0) {
+  constexpr int CH = DH / 8, SW = CH < 8 ? CH : 8;  // 16-byte chunks a row
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16* o = static_cast<bf16*>(p.o) + x.b * p.o_sb + x.h * p.o_sh;
+  __syncwarp();  // the lanes are done reading the last item's rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    const int rr = g + 8 * r;
-    if (p.lse && t == 0 && row0 + 8 * r < p.Sq)  // m is log2, scaled
-      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + row0 + 8 * r] =
+    const int rr = g + 8 * r, row = wrow0 + rr;
+    if (p.lse && t == 0 && row < p.Sq)  // m is log2, scaled
+      p.lse[(static_cast<int64_t>(x.b) * p.H + x.h) * p.Sq + row] =
           (m[r] + log2f(l[r])) * 0.6931471805599453f;
 #pragma unroll
     for (int dn = 0; dn < CH; ++dn)
-      *reinterpret_cast<uint32_t*>(Os + rr * DH + (dn ^ (rr % SW)) * 8 +
+      *reinterpret_cast<uint32_t*>(Ow + rr * DH + (dn ^ (rr % SW)) * 8 +
                                    2 * t) =
           pack_bf16(acc[4 * dn + 2 * r] * inv, acc[4 * dn + 2 * r + 1] * inv);
   }
   __syncwarp();
   for (int i = lane; i < 16 * CH; i += 32) {
     const int rr = i / CH, c = i % CH;
-    const int row = wq0 + 16 * warp + rr;
-    if (row < p.Sq)
-      *reinterpret_cast<uint4*>(o + static_cast<int64_t>(row) * p.o_ss +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(Os + rr * DH + (c ^ (rr % SW)) * 8);
+    if (wrow0 + rr < p.Sq)
+      *reinterpret_cast<uint4*>(o + static_cast<int64_t>(wrow0 + rr) *
+                                        p.o_ss + c * 8) =
+          *reinterpret_cast<const uint4*>(Ow + rr * DH + (c ^ (rr % SW)) * 8);
+  }
+}
+
+// The accumulator of m64nN (PTX ISA): warp w of the warpgroup holds rows
+// 16 w + g and 16 w + g + 8; d[4 i + e] is column 8 i + 2 t + (e & 1) of
+// row g + 8 (e >> 1), the layout of mma.m16n8k16's fragments side by side;
+// an A operand from registers takes mma.m16n8k16's A layout in each warp.
+//
+// Three warpgroups: warpgroup 0 the producer (one thread starts every TMA
+// load), 1 and 2 the consumers, 64 query rows each.  A block walks the
+// work items blockIdx.x, + gridDim.x, ...; the ring's tile count `it` and
+// the item count `n` run alike in all three, and give every mbarrier's
+// parity.
+template <int DH>
+__global__ void __launch_bounds__(GNT, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, FlashParams p,
+                   Slots sq, Slots sk, Slots sv, int B, int n_q) {
+  constexpr int TILE = GK * DH;
+  constexpr uint32_t TILE_BYTES = TILE * sizeof(bf16);
+  constexpr int STAGES = ring_stages<DH>();
+  static_assert(DH % 16 == 0 && DH <= 128, "unsupported head size");
+  static_assert(STAGES >= 3, "a consumer holds three tiles at once");
+
+  extern __shared__ float4 smem4[];
+  bf16* Qs = align1024(smem4);
+  bf16* Os = Qs + ROWS * DH;
+  bf16* Ks = Os + ROWS * DH;      // STAGES tiles
+  bf16* Vs = Ks + STAGES * TILE;  // STAGES tiles
+  uint64_t* fullk = reinterpret_cast<uint64_t*>(Vs + STAGES * TILE);
+  uint64_t* fullv = fullk + STAGES;
+  uint64_t* empty = fullv + STAGES;
+  uint64_t* qfull = empty + STAGES;
+  uint64_t* qempty = qfull + 1;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int n_items = n_q * B * p.H;
+  const int G = p.H / p.KV;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&fullk[st], 1);
+      mbar_init(&fullv[st], 1);
+      mbar_init(&empty[st], 4 * CWG);  // one arrival per consumer warp
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 4 * CWG);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised
+
+  if (wg == 0) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      int it = 0, n = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
+        const Item x = item_of(w, n_q, p.H, B);
+        const int T = item_tiles(x.q0, p), kvh = x.h / G;
+        // the next item's Q as soon as both consumers hold this one's in
+        // registers
+        if (n > 0) mbar_wait(qempty, (n - 1) & 1);
+        mbar_expect_tx(qfull, ROWS * DH * sizeof(bf16));
+        for (int c = 0; c < CWG; ++c)
+          tma_tile<DH>(Qs + c * 64 * DH, &tq, qfull, x.q0 + 64 * c, x.h, x.b,
+                       sq);
+        // K and V land on barriers of their own, so that QK^T need not
+        // wait for V
+        for (int j = 0; j < T; ++j, ++it) {
+          const int st = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+          mbar_expect_tx(&fullk[st], TILE_BYTES);
+          tma_tile<DH>(Ks + st * TILE, &tk, &fullk[st], j * GK, kvh, x.b, sk);
+          mbar_expect_tx(&fullv[st], TILE_BYTES);
+          tma_tile<DH>(Vs + st * TILE, &tv, &fullv[st], j * GK, kvh, x.b, sv);
+        }
+      }
+    }
+  } else {  // a consumer
+    regs_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const float scale = p.scale * LOG2E;  // scores in the log2 domain
+    bf16* Ow = Os + (c * 64 + warp * 16) * DH;  // this warp's 16 rows
+    int it = 0, n = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++n) {
+      const Item x = item_of(w, n_q, p.H, B);
+      const int T = item_tiles(x.q0, p);
+      // The item's two halves alternate between the warpgroups: under the
+      // causal mask the upper half reads one tile fewer, so over two items
+      // both do the same work, and the ring lets them drift apart.
+      const int half = c ^ (n & 1);
+      const int wq0 = x.q0 + 64 * half;  // this warpgroup's rows
+      // tiles at or left of our last row; the block's others we release
+      const int M = p.causal ? min(T, (wq0 + 63) / GK + 1) : T;
+      const int row0 = wq0 + 16 * warp + (lane >> 2);  // rows row0, +8
+      auto st_of = [&](int j) { return (it + j) % STAGES; };
+      auto par_of = [&](int j) { return ((it + j) / STAGES) & 1; };
+      auto release = [&](int j) {  // this warp is done with tile j's stage
+        if (lane == 0) mbar_arrive(&empty[st_of(j)]);
+      };
+      // the ragged end and, on the diagonal, the future: only those tiles
+      // are masked, decided for the warpgroup as a whole
+      auto masked = [&](int j) {
+        return j * GK + GK > p.Sk || (p.causal && j * GK + GK > wq0);
+      };
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+      float acc[DH / 2];
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+      uint32_t qa[DH / 16][4], pa[4][4];
+      mbar_wait(qfull, n & 1);
+      load_q<DH>(qa, Qs + half * 64 * DH, warp, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(qempty);  // Q is in registers
+
+      // Tile j's softmax runs under tile j - 1's P V and tile j + 1's
+      // QK^T, issued together just before it (the first tile lacks the
+      // one, the last the other), its scores in a second fragment.  A step
+      // issues and waits for its products with no branch in between, or
+      // ptxas serialises them: the mask is a copy of the step of its own.
+      float sa[32], sb[32];
+      auto soft = [&](auto mk, int j, float(&s)[32]) {
+        if constexpr (decltype(mk)::value) mask_tile(s, j * GK, row0, p);
+        softmax_tile(s, m, l, alpha, scale);
+      };
+      auto first = [&](auto mk) {  // S_1 under tile 0's softmax
+        mbar_wait(&fullk[st_of(1)], par_of(1));
+        qk_issue<DH>(sb, qa, Ks + st_of(1) * TILE);
+        soft(mk, 0, sa);  // acc is 0: no rescale
+        to_p(pa, sa);
+        wgmma_wait<0>();
+        reg_fence(sb);
+      };
+      auto mid = [&](auto mk, int j, float(&cur)[32], float(&nxt)[32]) {
+        mbar_wait(&fullk[st_of(j + 1)], par_of(j + 1));
+        mbar_wait(&fullv[st_of(j - 1)], par_of(j - 1));
+        pv_issue<DH>(acc, pa, Vs + st_of(j - 1) * TILE);
+        qk_issue<DH>(nxt, qa, Ks + st_of(j + 1) * TILE);
+        soft(mk, j, cur);
+        wgmma_wait<1>();  // tile j - 1's P V is done
+        reg_fence(acc);
+        release(j - 1);
+        rescale<DH>(acc, alpha);
+        to_p(pa, cur);
+        wgmma_wait<0>();  // tile j + 1's scores are in
+        reg_fence(nxt);
+      };
+      auto last = [&](auto mk, int j, float(&cur)[32]) {
+        mbar_wait(&fullv[st_of(j - 1)], par_of(j - 1));
+        pv_issue<DH>(acc, pa, Vs + st_of(j - 1) * TILE);
+        soft(mk, j, cur);
+        wgmma_wait<0>();
+        reg_fence(acc);
+        release(j - 1);
+        rescale<DH>(acc, alpha);
+        to_p(pa, cur);
+      };
+      mbar_wait(&fullk[st_of(0)], par_of(0));
+      qk_issue<DH>(sa, qa, Ks + st_of(0) * TILE);
+      wgmma_wait<0>();
+      reg_fence(sa);
+      if (M == 1) {
+        if (masked(0)) soft(On{}, 0, sa); else soft(Off{}, 0, sa);
+        to_p(pa, sa);  // acc is 0: no rescale
+      } else if (masked(0)) {
+        first(On{});
+      } else {
+        first(Off{});
+      }
+      for (int j = 1; j + 1 < M; ++j) {  // S_j is in sb for odd j
+        if (masked(j)) {
+          if (j & 1) mid(On{}, j, sb, sa); else mid(On{}, j, sa, sb);
+        } else {
+          if (j & 1) mid(Off{}, j, sb, sa); else mid(Off{}, j, sa, sb);
+        }
+      }
+      if (M > 1) {
+        const int j = M - 1;
+        if (masked(j)) {
+          if (j & 1) last(On{}, j, sb); else last(On{}, j, sa);
+        } else {
+          if (j & 1) last(Off{}, j, sb); else last(Off{}, j, sa);
+        }
+      }
+      mbar_wait(&fullv[st_of(M - 1)], par_of(M - 1));
+      pv_issue<DH>(acc, pa, Vs + st_of(M - 1) * TILE);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      release(M - 1);
+      for (int j = M; j < T; ++j) {  // tiles only the other half reads
+        mbar_wait(&fullk[st_of(j)], par_of(j));
+        release(j);
+      }
+      store_item<DH>(acc, m, l, Ow, p, x, wq0 + 16 * warp);
+      it += T;
+    }
   }
 }
 
@@ -503,16 +702,29 @@ cudaError_t launch_bf16(const FlashParams& p, int B, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   Slots sq, sk, sv;
   if ((err = make_map<DH>(&tq, &sq, p.q, p.Sq, p.H, B, p.q_ss, p.q_sh,
-                      p.q_sb)) != cudaSuccess ||
+                          p.q_sb)) != cudaSuccess ||
       (err = make_map<DH>(&tk, &sk, p.k, p.Sk, p.KV, B, p.k_ss, p.k_sh,
-                      p.k_sb)) != cudaSuccess ||
+                          p.k_sb)) != cudaSuccess ||
       (err = make_map<DH>(&tv, &sv, p.v, p.Sk, p.KV, B, p.v_ss, p.v_sh,
-                      p.v_sb)) != cudaSuccess)
+                          p.v_sb)) != cudaSuccess)
     return err;
-  const int n_q = (p.Sq + 64 * NWG - 1) / (64 * NWG);
-  if (B > 65535 || n_q > 65535) return cudaErrorInvalidValue;
-  dim3 grid(p.H, B, n_q);
-  flash_fwd_bf16<DH><<<grid, GNT, smem, stream>>>(tq, tk, tv, p, sq, sk, sv);
+  const int64_t n_q = (p.Sq + ROWS - 1) / ROWS;
+  const int64_t items = n_q * B * p.H;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  // persistent: one block an SM at most, each walking items by a stride;
+  // each device's SM count is read once
+  static int sms_of[64] = {};
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!sms_of[dev] &&
+      (err = cudaDeviceGetAttribute(&sms_of[dev],
+                                    cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return err;
+  const int grid = static_cast<int>(items < sms_of[dev] ? items : sms_of[dev]);
+  flash_fwd_bf16<DH><<<grid, GNT, smem, stream>>>(
+      tq, tk, tv, p, sq, sk, sv, B, static_cast<int>(n_q));
   return cudaGetLastError();
 }
 
@@ -566,4 +778,10 @@ extern "C" int flash_attention_smem_bytes(int dtype, int DH) {
     case 128: return pick(fp32_smem_bytes<128>(), wg_smem_bytes<128>());
     default: return 0;
   }
+}
+
+// The threads of one block of flash_attention_fwd for dtype (0 = float32,
+// 1 = bfloat16); 0 for another.
+extern "C" int flash_attention_threads(int dtype) {
+  return dtype == 0 ? NT : dtype == 1 ? GNT : 0;
 }

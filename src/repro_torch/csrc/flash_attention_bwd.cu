@@ -430,34 +430,6 @@ constexpr size_t wg_bwd_smem_bytes() {
          2 * RING * 64 * sizeof(float) + (1 + 2 * RING) * sizeof(uint64_t);
 }
 
-// The first 1024-byte boundary in dynamic shared memory, found by pointer
-// arithmetic on `smem` (not through an integer), so that loads and stores
-// through it stay shared-memory instructions.
-__device__ __forceinline__ bf16* align1024(float4* smem) {
-  char* base = reinterpret_cast<char*>(smem);
-  const uint32_t pad = (1024 - (smem_addr(base) & 1023)) & 1023;
-  return reinterpret_cast<bf16*>(base + pad);
-}
-
-template <int N>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// One 64-row tile (all its panels) at row `row` into shared memory.
-template <int DH>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int row, int head,
-                                         int batch, Slots sl) {
-  constexpr int RB = Swz<DH>::RB, PANEL = 64 * RB / 2;
-  for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
-    tma_load(dst + pn * PANEL, map, bar, pn * RB / 2, row, head, batch, sl);
-}
-
 // d = a b^T (64 x 64) over Dh: a and b 64-row tiles, both K-major, Dh / 16
 // steps of m64n64k16; the caller fences, commits and waits.  A 16-deep
 // step moves 32 B along the row, and to the next panel after RB / 32

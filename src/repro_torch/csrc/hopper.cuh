@@ -105,6 +105,37 @@ struct Swz {
                            : CU_TENSOR_MAP_SWIZZLE_32B;
 };
 
+// One 64-row tile (all its panels) at row `row` into shared memory.
+template <int DH>
+__device__ __forceinline__ void tma_tile(__nv_bfloat16* dst,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int row, int head,
+                                         int batch, Slots sl) {
+  constexpr int RB = Swz<DH>::RB, PANEL = 64 * RB / 2;
+  for (int pn = 0; pn < Swz<DH>::PANELS; ++pn)
+    tma_load(dst + pn * PANEL, map, bar, pn * RB / 2, row, head, batch, sl);
+}
+
+// The first 1024-byte boundary in dynamic shared memory, found by pointer
+// arithmetic on `smem` (not through an integer), so that loads and stores
+// through it stay shared-memory instructions.
+__device__ __forceinline__ __nv_bfloat16* align1024(float4* smem) {
+  char* base = reinterpret_cast<char*>(smem);
+  const uint32_t pad = (1024 - (smem_addr(base) & 1023)) & 1023;
+  return reinterpret_cast<__nv_bfloat16*>(base + pad);
+}
+
+// Warp specialisation: a warpgroup gives up registers (the producer) or
+// takes them (a consumer) after launch; every warp of it executes this.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 template <int DH>
 __device__ __forceinline__ uint64_t wg_desc(const void* ptr, uint32_t lbo,
                                             uint32_t sbo) {
@@ -164,6 +195,51 @@ WGMMA_SS_N64(wgmma_ss_n64, WGMMA_ADD, 1)
 #undef WGMMA_SET
 #undef WGMMA_ADD
 #undef WGMMA_SS_N64
+
+// a (64 x 16, registers) * b (16 x 64, K-major in shared memory): NAME(d,
+// a, db) sets d to it (OUT "=f", SCALE_D 0) or adds it to d ("+f", 1).
+#define WGMMA_RS_N64_KMAJOR(NAME, OUT, SCALE_D)                             \
+  __device__ __forceinline__ void NAME(float (&d)[32],                     \
+                                       const uint32_t (&a)[4],             \
+                                       uint64_t db) {                      \
+    asm volatile(                                                          \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                       \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"           \
+        "%0, %1, %2, %3, %4, %5, %6, %7, "                                 \
+        "%8, %9, %10, %11, %12, %13, %14, %15, "                           \
+        "%16, %17, %18, %19, %20, %21, %22, %23, "                         \
+        "%24, %25, %26, %27, %28, %29, %30, %31"                           \
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                    \
+        : OUT(d[0]), OUT(d[1]), OUT(d[2]), OUT(d[3]),                      \
+          OUT(d[4]), OUT(d[5]), OUT(d[6]), OUT(d[7]),                      \
+          OUT(d[8]), OUT(d[9]), OUT(d[10]), OUT(d[11]),                    \
+          OUT(d[12]), OUT(d[13]), OUT(d[14]), OUT(d[15]),                  \
+          OUT(d[16]), OUT(d[17]), OUT(d[18]), OUT(d[19]),                  \
+          OUT(d[20]), OUT(d[21]), OUT(d[22]), OUT(d[23]),                  \
+          OUT(d[24]), OUT(d[25]), OUT(d[26]), OUT(d[27]),                  \
+          OUT(d[28]), OUT(d[29]), OUT(d[30]), OUT(d[31])                   \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),             \
+          "r"(SCALE_D));                                                   \
+  }
+#define WGMMA_SET(x) "=f"(x)
+#define WGMMA_ADD(x) "+f"(x)
+WGMMA_RS_N64_KMAJOR(wgmma_rs_n64_first, WGMMA_SET, 0)
+WGMMA_RS_N64_KMAJOR(wgmma_rs_n64, WGMMA_ADD, 1)
+#undef WGMMA_SET
+#undef WGMMA_ADD
+#undef WGMMA_RS_N64_KMAJOR
+
+// Four 8 x 8 bf16 matrices from shared memory, one a register: lane l
+// gives the address of row l % 8 of matrix l / 8 (mma.m16n8k16's A
+// fragment when the matrices are rows 0-7 and 8-15 of k 0-7, then of k
+// 8-15).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
 
 // d += a (64 x 16, registers) * b (16 x N, MN-major in shared memory).
 template <int N>

@@ -4,8 +4,9 @@ llama3.1-8b widths, a cache holding NaN past the fill level, decode
 attention across its splits (bit-equal across calls, and within 1e-6 or
 one bf16 ulp of its split arithmetic emulated in torch), both attentions
 on strided views with NaN around them, flash attention with its bf16 products
-on the tensor cores (in its SASS) and, in bf16, within one ulp of its
-rounding points emulated in torch; RMSNorm fused with the residual add
+on the tensor cores (in its SASS, spilling nothing) and, in bf16, within
+one ulp of its rounding points emulated in torch, also where its
+persistent blocks walk fewer items than SMs or many a block; RMSNorm fused with the residual add
 (the sum bit for bit ``x + r``); decode attention captured in a CUDA graph
 and replayed at positions across its splits, bit-equal to eager calls; then
 the smoke model on the card against the same weights on the CPU, and its
@@ -191,6 +192,79 @@ def test_flash_attention_bf16_kernels_use_the_tensor_cores(cuda):
     bf16 = {k: n for k, n in counts.items() if "flash_fwd_bf16" in k}
     assert len(bf16) == len(_build.HEAD_DIMS)
     assert all(n > 0 for n in bf16.values()), bf16
+
+
+# K2's bf16 forward walks its work items (128 query rows of one head of
+# one sequence) by min(items, SMs) persistent blocks: fewer items than
+# SMs, a ragged Sq of many items a block, Sq != Sk both ways, every head
+# size
+PERSISTENT_CASES = [
+    (1, 64, 64, 1, 1, 64, True), (1, 64, 64, 1, 1, 64, False),
+    (16, 1500, 1500, 16, 16, 64, False), (16, 1500, 1500, 16, 16, 64, True),
+    (2, 300, 700, 8, 2, 128, False), (2, 300, 700, 8, 2, 128, True),
+    (2, 700, 300, 8, 2, 128, True), (3, 1, 130, 4, 4, 64, True),
+    *[(2, 333, 333, 8, 2, dh, causal) for dh in (16, 32, 64, 128)
+      for causal in (True, False)]]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,dh,causal", PERSISTENT_CASES)
+def test_flash_attention_persistent_forward(cuda, b, sq, sk, h, kv, dh,
+                                            causal):
+    """The bf16 forward against ``attention_bf16_emulated`` (computed on
+    the card in fp32): within one bf16 ulp (floored at 1/16) but for at
+    most 0.1% of the elements, which stay within 8, the backward's
+    contract.  The kernel's ex2.approx flips the bf16 rounding of a few P
+    elements, and where a row's sum cancels that is several ulps of a
+    small output (4 at B 2, S 1,000, 8/2 heads, Dh 128, causal, on an
+    H100).  Also within bf16's tolerance of the plain version, its lse
+    within that tolerance of the plain lse, one launch a call, and the
+    same bits with and without the lse and over two runs."""
+    gen = torch.Generator(cuda).manual_seed(31)
+    q = _randn(gen, (b, sq, h, dh), torch.bfloat16, cuda)
+    k, v = (_randn(gen, (b, sk, kv, dh), torch.bfloat16, cuda)
+            for _ in range(2))
+    n = fa_ops.flash_attention.launches
+    out, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal)
+    again = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == n + 2
+    assert torch.equal(out, again)
+    want = attention_bf16_emulated(q, k, v, causal=causal)
+    err = (out.float() - want.float()).abs() / _bf16_ulp(want)
+    assert err.max() <= 8, f"{err.max():.3g} ulp"
+    assert (err > 1).float().mean() <= 1e-3, \
+        f"{(err > 1).float().mean():.3g} of the elements beyond one ulp"
+    plain, plain_lse = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     return_lse=True)
+    tol = _tol(torch.bfloat16)
+    torch.testing.assert_close(out, plain.transpose(1, 2), **tol)
+    torch.testing.assert_close(lse, plain_lse, **tol)
+
+
+def test_flash_attention_smem_mirror_is_the_kernels(cuda):
+    """The persistent walk's Python mirror counts the bf16 forward's
+    shared memory and threads as the built kernel does, at every head
+    size."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    lib = _build.load("flash_attention")
+    assert lib.flash_attention_threads(1) == fa_kernel.THREADS
+    for dh in _build.HEAD_DIMS:
+        assert lib.flash_attention_smem_bytes(1, dh) == \
+            fa_kernel.fwd_smem_bytes(dh)
+
+
+def test_flash_attention_bf16_forward_spills_nothing(cuda):
+    """Every bf16 forward (``flash_fwd_bf16<Dh>``) holds HGMMA (wgmma)
+    instructions and spills no register (its ptxas report)."""
+    from repro_torch.kernels import _build
+    kinds = _build.tensor_core_kinds("flash_attention")
+    report = _build.ptxas_report("flash_attention")
+    bf16 = [k for k in kinds if "flash_fwd_bf16" in k]
+    assert len(bf16) == len(_build.HEAD_DIMS), sorted(kinds)
+    assert all(kinds[k]["HGMMA"] > 0 and report[k][1] == 0 for k in bf16), \
+        {k: (kinds[k], report[k]) for k in bf16}
 
 
 def _decode_want(q, k, v, pos):
