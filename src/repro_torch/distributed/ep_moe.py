@@ -32,6 +32,7 @@ from repro_torch.distributed.local import as_dtensor, wrap
 from repro_torch.distributed.sharding import P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import route
+from repro_torch.phases import phase
 
 
 def _axis_sizes(policy):
@@ -86,47 +87,51 @@ def moe_ffn_ep(cfg: ModelConfig, params, x, policy):
         t = bl * sl
         dev = x_loc.device
         xt = x_loc.reshape(t, d)
-        probs, gate_vals, gate_idx = route(cfg, router_w, xt)
-        # aux loss from global stats (means over the data shards); every
-        # model rank computes it alike, so only the first passes its
-        # gradient on (shard_map sums the inputs' over model)
-        j = mesh.get_local_rank(model_ax)
-        me = _psum(probs.mean(0), mesh, data_axes) / n_data
-        if j:
-            me = me.detach()
-        ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-            0, gate_idx[:, 0], torch.ones_like(probs[:, 0])) / t
-        ce = _psum(ce, mesh, data_axes) / n_data
-        aux = e * (me * ce).sum()
+        with phase("moe.route"):
+            probs, gate_vals, gate_idx = route(cfg, router_w, xt)
+            # aux loss from global stats (means over the data shards);
+            # every model rank computes it alike, so only the first passes
+            # its gradient on (shard_map sums the inputs' over model)
+            j = mesh.get_local_rank(model_ax)
+            me = _psum(probs.mean(0), mesh, data_axes) / n_data
+            if j:
+                me = me.detach()
+            ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+                0, gate_idx[:, 0], torch.ones_like(probs[:, 0])) / t
+            ce = _psum(ce, mesh, data_axes) / n_data
+            aux = e * (me * ce).sum()
 
-        # local expert block
-        e_start = j * e_loc
-        flat_e = gate_idx.reshape(-1)
-        flat_g = gate_vals.reshape(-1)
-        flat_t = torch.arange(t, device=dev).repeat_interleave(k)
-        local = (flat_e >= e_start) & (flat_e < e_start + e_loc)
-        le = torch.where(local, flat_e - e_start, e_loc)  # e_loc: dropped
-        order = torch.argsort(le, stable=True)
-        se, st, sg = le[order], flat_t[order], flat_g[order]
-        starts = torch.searchsorted(
-            se, torch.arange(e_loc, device=dev, dtype=se.dtype))
-        rank = torch.arange(se.shape[0], device=dev) - \
-            starts[se.clamp(0, e_loc - 1)]
-        keep = (se < e_loc) & (rank < cap)
-        slot = torch.where(keep, se * cap + rank, 0)
+        with phase("moe.dispatch"):
+            # local expert block
+            e_start = j * e_loc
+            flat_e = gate_idx.reshape(-1)
+            flat_g = gate_vals.reshape(-1)
+            flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+            local = (flat_e >= e_start) & (flat_e < e_start + e_loc)
+            le = torch.where(local, flat_e - e_start, e_loc)  # e_loc: dropped
+            order = torch.argsort(le, stable=True)
+            se, st, sg = le[order], flat_t[order], flat_g[order]
+            starts = torch.searchsorted(
+                se, torch.arange(e_loc, device=dev, dtype=se.dtype))
+            rank = torch.arange(se.shape[0], device=dev) - \
+                starts[se.clamp(0, e_loc - 1)]
+            keep = (se < e_loc) & (rank < cap)
+            slot = torch.where(keep, se * cap + rank, 0)
 
-        gathered = xt.index_select(0, st) * keep[:, None].to(dtype)
-        buf = torch.zeros((e_loc * cap, d), dtype=dtype, device=dev)
-        buf = buf.index_add(0, slot, gathered).view(e_loc, cap, d)
+            gathered = xt.index_select(0, st) * keep[:, None].to(dtype)
+            buf = torch.zeros((e_loc * cap, d), dtype=dtype, device=dev)
+            buf = buf.index_add(0, slot, gathered).view(e_loc, cap, d)
 
-        h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
-        out_buf = torch.bmm(h, wd).view(e_loc * cap, d)
+        with phase("moe.experts"):
+            h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+            out_buf = torch.bmm(h, wd).view(e_loc * cap, d)
 
-        contrib = out_buf.index_select(0, slot) * \
-            (sg * keep).to(dtype)[:, None]
-        yt = torch.zeros_like(xt).index_add(0, st, contrib)
-        # sum each token's expert contributions across model shards
-        yt = _psum(yt, mesh, (model_ax,))
+        with phase("moe.combine"):
+            contrib = out_buf.index_select(0, slot) * \
+                (sg * keep).to(dtype)[:, None]
+            yt = torch.zeros_like(xt).index_add(0, st, contrib)
+            # sum each token's expert contributions across model shards
+            yt = _psum(yt, mesh, (model_ax,))
         return yt.reshape(bl, sl, d), aux
 
     w = params["experts"]

@@ -16,6 +16,12 @@ it serves tokens only); ``measure_throughput`` draws them seeded with
 each request's prompts, as ``models.io`` draws a batch.  Timers are
 ``time.perf_counter`` around work that ends in
 ``torch.cuda.synchronize()``; capture happens before them.
+
+Under an active ``torch.profiler``, ``generate`` opens the ranges
+``engine.upload``, ``engine.capture`` (inside it, where a graph is
+captured), ``engine.prefill``, ``engine.decode`` and
+``engine.tokens_out``, and keeps its phases' spans
+(``repro_torch.phases``); with no profiler these cost a flag check each.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import phases
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.inference.sampling import sample
@@ -60,7 +67,10 @@ class DecodeGraph:
     model takes them: their cross K/V land in the captured buffers too).
     The launch counters of the captured kernels tick once, at capture,
     not at replays; a capture counts as one compilation for
-    ``staticcheck.tracers.assert_max_compiles``."""
+    ``staticcheck.tracers.assert_max_compiles``.  ``node_phases`` holds the
+    phase of each kernel, memset and memcpy node of the graph, in node
+    order (``repro_torch.phases``), as the capture labelled them; it is
+    published to ``phases.STORE`` with the signature."""
 
     @torch.inference_mode()
     def __init__(self, model: Model, batch: int, max_len: int):
@@ -86,7 +96,13 @@ class DecodeGraph:
         # first replay
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph):
-            self.logits = self._step()
+            with phases.labelling() as lab:
+                self.logits = self._step()
+        self.node_phases = phases.label_nodes(
+            lab.marks, [kind for kind, _ in phases.graph_nodes(
+                self.graph.raw_cuda_graph())])
+        phases.STORE.node_phases = self.node_phases
+        phases.STORE.signature = self.signature
         self.graph.instantiate()
         note_compile("capture")
         self.cache.zero_()
@@ -94,9 +110,10 @@ class DecodeGraph:
 
     def _step(self):
         logits, _ = self.model.decode_step(self.cache, self.tok)
-        nxt = sample(logits, vocab_size=self.model.cfg.vocab_size)
-        self.tok.copy_(nxt)
-        self.history.index_copy_(1, self.cache.pos_t, nxt)
+        with phases.phase("sample"):
+            nxt = sample(logits, vocab_size=self.model.cfg.vocab_size)
+            self.tok.copy_(nxt)
+            self.history.index_copy_(1, self.cache.pos_t, nxt)
         return logits
 
     @torch.inference_mode()
@@ -114,33 +131,10 @@ class DecodeGraph:
         order, read from the captured graph through the CUDA driver (12.3 or
         later): what a replay runs, independent of any tracer."""
         import ctypes
-        cu = ctypes.CDLL("libcuda.so.1")
-        ptr, size_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
-        for fn, args in (("cuGraphGetNodes", [ptr, ptr, size_p]),
-                         ("cuGraphNodeGetType", [ptr, ptr]),
-                         ("cuGraphKernelNodeGetParams_v2", [ptr, ptr]),
-                         ("cuFuncGetName", [ptr, ptr]),
-                         ("cuKernelGetName", [ptr, ptr])):
-            f = getattr(cu, fn)
-            f.argtypes, f.restype = args, ctypes.c_int
-
-        def check(rc, what):
-            if rc != 0:
-                raise RuntimeError(f"{what} failed with CUresult {rc}")
-
-        graph = ptr(self.graph.raw_cuda_graph())
-        n = ctypes.c_size_t(0)
-        check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)),
-              "cuGraphGetNodes")
-        nodes = (ptr * n.value)()
-        check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)),
-              "cuGraphGetNodes")
+        cu, check, ptr = phases.driver(), phases.check, ctypes.c_void_p
         names = []
-        for node in nodes:
-            kind = ctypes.c_int(-1)
-            check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
-                  "cuGraphNodeGetType")
-            if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+        for kind, node in phases.graph_nodes(self.graph.raw_cuda_graph()):
+            if kind != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
                 continue
             # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
             params = (ctypes.c_uint64 * 16)()
@@ -180,7 +174,8 @@ class ServingEngine:
         g = self._graph
         if g is None or g.signature != (batch, max_len):
             self._graph = g = None  # free the old one before capturing
-            g = self._graph = DecodeGraph(self.model, batch, max_len)
+            with phases.span("engine.capture"):
+                g = self._graph = DecodeGraph(self.model, batch, max_len)
             self.captures += 1
         return g
 
@@ -199,49 +194,68 @@ class ServingEngine:
         if seq + max_new_tokens - 1 > max_len:
             raise ValueError(f"{seq} + {max_new_tokens} positions need more "
                              f"than {max_len} cache slots")
-        vocab = self.model.cfg.vocab_size
-        extra = {k: torch.as_tensor(v).to(self.device,
-                                          self.model.cfg.compute_dtype)
-                 for k, v in (inputs or {}).items()}
-        # a fixed seed, as the JAX engine samples with fixed keys
-        gen = torch.Generator(device=self.device).manual_seed(0)
-        tokens = torch.as_tensor(prompts, dtype=torch.int64,
-                                 device=self.device)
-        graph = (self.decode_graph(b, max_len)
-                 if self.device.type == "cuda" else None)
-        t0 = time.perf_counter()
-        logits, cache = self.model.prefill(
-            tokens, max_len, cache=graph.cache if graph else None, **extra)
-        tok = sample(logits, gen, temperature=self.temperature,
-                     vocab_size=vocab)
-        self._sync()
-        t1 = time.perf_counter()
-        toks = [tok]
-        if graph is None:
-            for _ in range(max_new_tokens - 1):
-                logits, cache = self.model.decode_step(cache, tok)
-                tok = sample(logits, gen, temperature=self.temperature,
-                             vocab_size=vocab)
-                toks.append(tok)
-        else:
-            graph.start(tok)
-            for _ in range(max_new_tokens - 1):
-                graph.replay()
-                if self.temperature > 0.0:
-                    tok = sample(graph.logits, gen,
-                                 temperature=self.temperature,
-                                 vocab_size=vocab)
-                    graph.tok.copy_(tok)
-                    toks.append(tok)
-            self.replays += max_new_tokens - 1
-            if self.temperature <= 0.0:
-                toks = [graph.history[:, seq:seq + max_new_tokens]]
-        self._sync()
-        t2 = time.perf_counter()
-        out = torch.cat(toks, dim=1).cpu().numpy().astype(np.int32)
+        with phases.recording(self.device):
+            out, t0, t1, t2 = self._generate(prompts, max_new_tokens,
+                                             max_len, seq, inputs)
         return GenerationResult(
             tokens=out, prefill_s=t1 - t0, decode_s=t2 - t1,
             tokens_per_s=b * max_new_tokens / max(t2 - t0, 1e-9))
+
+    def _generate(self, prompts, max_new_tokens, max_len, seq, inputs):
+        """``generate``'s work in its engine ranges: the tokens (B, oo) on
+        the host, and the clock at the prefill's start, the decode's start
+        and its end."""
+        b = prompts.shape[0]
+        vocab = self.model.cfg.vocab_size
+        with phases.span("engine.upload"):
+            extra = {k: torch.as_tensor(v).to(self.device,
+                                              self.model.cfg.compute_dtype)
+                     for k, v in (inputs or {}).items()}
+            # a fixed seed, as the JAX engine samples with fixed keys
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            tokens = torch.as_tensor(prompts, dtype=torch.int64,
+                                     device=self.device)
+            graph = (self.decode_graph(b, max_len)
+                     if self.device.type == "cuda" else None)
+        t0 = time.perf_counter()
+        with phases.span("engine.prefill"):
+            logits, cache = self.model.prefill(
+                tokens, max_len, cache=graph.cache if graph else None,
+                **extra)
+            with phases.phase("sample"):
+                tok = sample(logits, gen, temperature=self.temperature,
+                             vocab_size=vocab)
+            self._sync()
+        t1 = time.perf_counter()
+        toks = [tok]
+        with phases.span("engine.decode"):
+            if graph is None:
+                for _ in range(max_new_tokens - 1):
+                    logits, cache = self.model.decode_step(cache, tok)
+                    with phases.phase("sample"):
+                        tok = sample(logits, gen,
+                                     temperature=self.temperature,
+                                     vocab_size=vocab)
+                    toks.append(tok)
+            else:
+                graph.start(tok)
+                for _ in range(max_new_tokens - 1):
+                    graph.replay()
+                    if self.temperature > 0.0:
+                        with phases.phase("sample"):
+                            tok = sample(graph.logits, gen,
+                                         temperature=self.temperature,
+                                         vocab_size=vocab)
+                            graph.tok.copy_(tok)
+                        toks.append(tok)
+                self.replays += max_new_tokens - 1
+                if self.temperature <= 0.0:
+                    toks = [graph.history[:, seq:seq + max_new_tokens]]
+            self._sync()
+        t2 = time.perf_counter()
+        with phases.span("engine.tokens_out"):
+            out = torch.cat(toks, dim=1).cpu().numpy().astype(np.int32)
+        return out, t0, t1, t2
 
     # -- benchmarking path ---------------------------------------------------
     def measure_throughput(self, ii: int, oo: int, bb: int, reps: int = 3,

@@ -27,6 +27,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init
 from repro_torch.models.layers import rmsnorm as _rmsnorm
+from repro_torch.phases import phase
 
 
 class KVCache(NamedTuple):
@@ -99,17 +100,20 @@ def _out_proj(params, out):
 def attend_full(cfg: ModelConfig, params, x, positions, causal=None):
     """Full-sequence attention (prefill). Returns (out, KVCache)."""
     causal = cfg.causal if causal is None else causal
-    q = _project_q(cfg, params, x)
-    k, v = _project_kv(cfg, params, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    q = constrain(q, "act_qkv")
-    k = constrain(k, "act_kv")
-    v = constrain(v, "act_kv")
-    out = fa_ops.flash_attention(q, k, v, causal=causal,
-                                 scale=1.0 / (cfg.d_head ** 0.5))
-    out = constrain(out, "act_qkv")
-    return _out_proj(params, out), KVCache(k=k, v=v)
+    with phase("attn.proj"):
+        q = _project_q(cfg, params, x)
+        k, v = _project_kv(cfg, params, x)
+    with phase("attn.kernel"):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        q = constrain(q, "act_qkv")
+        k = constrain(k, "act_kv")
+        v = constrain(v, "act_kv")
+        out = fa_ops.flash_attention(q, k, v, causal=causal,
+                                     scale=1.0 / (cfg.d_head ** 0.5))
+        out = constrain(out, "act_qkv")
+    with phase("attn.proj"):
+        return _out_proj(params, out), KVCache(k=k, v=v)
 
 
 def attend_decode(cfg: ModelConfig, params, x, cache: KVCache, pos):
@@ -122,17 +126,20 @@ def attend_decode(cfg: ModelConfig, params, x, cache: KVCache, pos):
     it, so a captured step follows it."""
     b = x.shape[0]
     pos_t = torch.as_tensor(pos, dtype=torch.int64, device=x.device).reshape(1)
-    q = _project_q(cfg, params, x)                   # (B,1,H,Dh)
-    k_new, v_new = _project_kv(cfg, params, x)       # (B,1,KV,Dh)
-    posv = pos_t.expand(b)[:, None]
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k_new = apply_rope(k_new, posv, cfg.rope_theta)
-    write_at(cache.k, pos_t, k_new)
-    write_at(cache.v, pos_t, v_new)
-    k, v = constrain(cache.k, "kv_cache"), constrain(cache.v, "kv_cache")
-    out = da_ops.decode_attention(q[:, 0], k, v, pos_t,
-                                  scale=1.0 / (cfg.d_head ** 0.5))
-    return _out_proj(params, out[:, None]), cache
+    with phase("attn.proj"):
+        q = _project_q(cfg, params, x)                   # (B,1,H,Dh)
+        k_new, v_new = _project_kv(cfg, params, x)       # (B,1,KV,Dh)
+    with phase("attn.kernel"):
+        posv = pos_t.expand(b)[:, None]
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k_new = apply_rope(k_new, posv, cfg.rope_theta)
+        write_at(cache.k, pos_t, k_new)
+        write_at(cache.v, pos_t, v_new)
+        k, v = constrain(cache.k, "kv_cache"), constrain(cache.v, "kv_cache")
+        out = da_ops.decode_attention(q[:, 0], k, v, pos_t,
+                                      scale=1.0 / (cfg.d_head ** 0.5))
+    with phase("attn.proj"):
+        return _out_proj(params, out[:, None]), cache
 
 
 def attend_cross(cfg: ModelConfig, params, x, memory_kv: KVCache, pos=None):
@@ -143,15 +150,18 @@ def attend_cross(cfg: ModelConfig, params, x, memory_kv: KVCache, pos=None):
     T - 1: one decode step (S 1) through the decode-attention kernel over
     all T positions; a captured step reads the position from that
     tensor, which lives with the cache."""
-    q = _project_q(cfg, params, x)
+    with phase("attn.proj"):
+        q = _project_q(cfg, params, x)
     scale = 1.0 / (cfg.d_head ** 0.5)
-    if pos is None:
-        out = fa_ops.flash_attention(q, memory_kv.k, memory_kv.v,
-                                     causal=False, scale=scale)
-    else:
-        out = da_ops.decode_attention(q[:, 0], memory_kv.k, memory_kv.v,
-                                      pos, scale=scale)[:, None]
-    return _out_proj(params, out)
+    with phase("attn.kernel"):
+        if pos is None:
+            out = fa_ops.flash_attention(q, memory_kv.k, memory_kv.v,
+                                         causal=False, scale=scale)
+        else:
+            out = da_ops.decode_attention(q[:, 0], memory_kv.k, memory_kv.v,
+                                          pos, scale=scale)[:, None]
+    with phase("attn.proj"):
+        return _out_proj(params, out)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device,

@@ -21,6 +21,7 @@ from repro_torch.distributed.local import (local, matmul,
                                            row_placements, wrap)
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.phases import phase
 
 
 # ---------------------------------------------------------------------------
@@ -106,9 +107,10 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator):
 
 
 def mlp(cfg: ModelConfig, params, x):
-    g = matmul(x, params["w_gate"])
-    u = matmul(x, params["w_up"])
-    return matmul(F.silu(g) * u, params["w_down"])
+    with phase("ffn"):
+        g = matmul(x, params["w_gate"])
+        u = matmul(x, params["w_up"])
+        return matmul(F.silu(g) * u, params["w_down"])
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from repro_torch.distributed.local import local, wrap
 from repro_torch.distributed.sharding import constrain, get_policy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.phases import phase
 
 
 def init_moe(cfg: ModelConfig, generator: torch.Generator):
@@ -114,35 +115,39 @@ def moe_ffn(cfg: ModelConfig, params, x):
     cap = expert_capacity(cfg, n_tokens)
     dtype = cfg.compute_dtype
     xt = x.reshape(n_tokens, d)
-    probs, gate_vals, gate_idx = route(cfg, router, xt)
+    with phase("moe.route"):
+        probs, gate_vals, gate_idx = route(cfg, router, xt)
+        # Switch-style load balancing; the first choice's share a count
+        # exact in float32, as the mean of a one-hot
+        me = probs.mean(0)
+        ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+            0, gate_idx[:, 0], torch.ones_like(probs[:, 0])) / n_tokens
+        aux = e * (me * ce).sum()
 
-    # Switch-style load balancing; the first choice's share a count exact
-    # in float32, as the mean of a one-hot
-    me = probs.mean(0)
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, gate_idx[:, 0], torch.ones_like(probs[:, 0])) / n_tokens
-    aux = e * (me * ce).sum()
+    with phase("moe.dispatch"):
+        token, order, slot, keep = dispatch(cfg, gate_idx, cap)
+        gathered = xt.index_select(0, token) * keep[:, None].to(dtype)
+        buf = torch.zeros((e * cap, d), dtype=dtype, device=x.device)
+        buf.index_add_(0, slot, gathered)
+        buf = buf.view(e, cap, d)
+        if mesh is not None:
+            buf = wrap(buf, mesh, whole, buf.shape)
+        buf = constrain(buf, "moe_ecd")
 
-    token, order, slot, keep = dispatch(cfg, gate_idx, cap)
-    gathered = xt.index_select(0, token) * keep[:, None].to(dtype)
-    buf = torch.zeros((e * cap, d), dtype=dtype, device=x.device)
-    buf.index_add_(0, slot, gathered)
-    buf = buf.view(e, cap, d)
-    if mesh is not None:
-        buf = wrap(buf, mesh, whole, buf.shape)
-    buf = constrain(buf, "moe_ecd")
+    with phase("moe.experts"):
+        w = params["experts"]
+        h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_up"])
+        out_buf = constrain(torch.bmm(h, w["w_down"]), "moe_ecd")
+        if mesh is not None:
+            out_buf = local(out_buf, mesh, whole)
+        out_buf = out_buf.view(e * cap, d)
 
-    w = params["experts"]
-    h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_up"])
-    out_buf = constrain(torch.bmm(h, w["w_down"]), "moe_ecd")
-    if mesh is not None:
-        out_buf = local(out_buf, mesh, whole)
-    out_buf = out_buf.view(e * cap, d)
-
-    # combine back, the gate cast to the compute type before the product
-    gate = (gate_vals.reshape(-1)[order] * keep).to(dtype)
-    expert_out = out_buf.index_select(0, slot) * gate[:, None]
-    yt = torch.zeros_like(xt).index_add_(0, token, expert_out).view(b, s, d)
+    with phase("moe.combine"):
+        # the gate cast to the compute type before the product
+        gate = (gate_vals.reshape(-1)[order] * keep).to(dtype)
+        expert_out = out_buf.index_select(0, slot) * gate[:, None]
+        yt = torch.zeros_like(xt).index_add_(0, token,
+                                             expert_out).view(b, s, d)
     if mesh is not None:
         return wrap(yt, mesh, whole, yt.shape), wrap(aux, mesh, whole, ())
     return yt, aux

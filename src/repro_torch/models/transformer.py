@@ -48,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import staterules
+from repro_torch.phases import layer, phase
 from repro_torch.distributed.local import (assign, gathered, matmul,
                                            write_prefix)
 from repro_torch.distributed.sharding import constrain, get_policy
@@ -202,15 +203,19 @@ def _residuals(cfg, spec, block, x, out, next_norm, memory=None, pos=None):
     ``train_loss`` adds it."""
     aux = None
     if memory is not None:
-        x, hc = L.add_rmsnorm(x, out, block["cross_norm"], cfg.norm_eps)
+        with phase("norm"):
+            x, hc = L.add_rmsnorm(x, out, block["cross_norm"], cfg.norm_eps)
         out = attn.attend_cross(cfg, block["cross_attn"], hc, memory, pos)
     if "norm2" in block:
-        x, h2 = L.add_rmsnorm(x, out, block["norm2"], cfg.norm_eps)
+        with phase("norm"):
+            x, h2 = L.add_rmsnorm(x, out, block["norm2"], cfg.norm_eps)
         if spec.ffn == FFN_MOE:
             out, aux = moe_mod.moe_ffn(cfg, block["moe"], h2)
         else:
             out = L.mlp(cfg, block["mlp"], h2)
-    return (*L.add_rmsnorm(x, out, next_norm, cfg.norm_eps), aux)
+    with phase("norm"):
+        x, h = L.add_rmsnorm(x, out, next_norm, cfg.norm_eps)
+    return x, h, aux
 
 
 def _block_end(x, h):
@@ -425,10 +430,11 @@ class Model(nn.Module):
         """Each decoder layer's cross K/V of the encoder output, written
         into ``cache.cross`` in place."""
         for p, i, _, block, _ in self._layers():
-            k, v = attn._project_kv(self.cfg,
-                                    self._params(block)["cross_attn"], enc_out)
-            assign(cache.cross[i].k[p], k)
-            assign(cache.cross[i].v[p], v)
+            with phase("attn.proj"):
+                k, v = attn._project_kv(
+                    self.cfg, self._params(block)["cross_attn"], enc_out)
+                assign(cache.cross[i].k[p], k)
+                assign(cache.cross[i].v[p], v)
 
     @staticmethod
     def _memory(cache: DecodeCache, p: int, i: int):
@@ -483,30 +489,36 @@ class Model(nn.Module):
             cache.zero_()
             cache.pos_t.fill_(s)
             cache = cache._replace(pos=s)
-        x = L.embed(cfg, self.embed, tokens)
+        with phase("embed"):
+            x = L.embed(cfg, self.embed, tokens)
         if cfg.frontend == "vision":
             x = torch.cat([gathered(self._vision(patches), (1,)),
                            gathered(x, (1,))], dim=1)
         x = constrain(x, "act_btd")
         if cfg.is_encdec:
             self._cross_kv(self.encode(frames), cache)
-        h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
+        with phase("norm"):
+            h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
         positions = torch.arange(s, device=x.device)[None, :]
         for p, i, spec, block, norm in self._layers():
-            block = self._params(block)
-            params, dst = block[spec.mixer], cache.blocks[i]
-            if spec.mixer == MIXER_ATTN:
-                out, kv = attn.attend_full(cfg, params, h, positions)
-                write_prefix(dst.k[p], kv.k)
-                write_prefix(dst.v[p], kv.v)
-            else:
-                out, state = _FULL[spec.mixer](cfg, params, h)
-                for t, new in zip(dst, state):
-                    assign(t[p], new)
-            x, h, _ = _residuals(cfg, spec, block, x, out, norm,
-                                 self._memory(cache, p, i))
-            x, h = _block_end(x, h)
-        return L.lm_logits(cfg, self.embed, gathered(h, (1,))[:, -1:]), cache
+            with layer():
+                block = self._params(block)
+                params, dst = block[spec.mixer], cache.blocks[i]
+                if spec.mixer == MIXER_ATTN:
+                    out, kv = attn.attend_full(cfg, params, h, positions)
+                    with phase("attn.kernel"):   # the K/V write
+                        write_prefix(dst.k[p], kv.k)
+                        write_prefix(dst.v[p], kv.v)
+                else:
+                    out, state = _FULL[spec.mixer](cfg, params, h)
+                    for t, new in zip(dst, state):
+                        assign(t[p], new)
+                x, h, _ = _residuals(cfg, spec, block, x, out, norm,
+                                     self._memory(cache, p, i))
+                x, h = _block_end(x, h)
+        with phase("head"):
+            logits = L.lm_logits(cfg, self.embed, gathered(h, (1,))[:, -1:])
+        return logits, cache
 
     @_serving
     def decode_step(self, cache: DecodeCache, tokens):
@@ -520,22 +532,28 @@ class Model(nn.Module):
         pos = cache.pos
         if pos >= cache.max_len:
             raise ValueError(f"decode position {pos} is past the cache")
-        x = L.embed(cfg, self.embed, tokens)
-        h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
+        with phase("embed"):
+            x = L.embed(cfg, self.embed, tokens)
+        with phase("norm"):
+            h = L.rmsnorm(x, self.blocks[0][0]["norm1"], cfg.norm_eps)
         for p, i, spec, block, norm in self._layers():
-            block = self._params(block)
-            params = block[spec.mixer]
-            state = type(cache.blocks[i])(*(t[p] for t in cache.blocks[i]))
-            if spec.mixer == MIXER_ATTN:
-                out, _ = attn.attend_decode(cfg, params, h, state,
-                                            cache.pos_t)
-            else:
-                out, new = _DECODE[spec.mixer](cfg, params, h, state)
-                for t, n in zip(state, new):
-                    assign(t, n)
-            x, h, _ = _residuals(cfg, spec, block, x, out, norm,
-                                 self._memory(cache, p, i), cache.cross_pos_t)
-        logits = constrain(L.lm_logits(cfg, self.embed, h), "logits")
+            with layer():
+                block = self._params(block)
+                params = block[spec.mixer]
+                state = type(cache.blocks[i])(
+                    *(t[p] for t in cache.blocks[i]))
+                if spec.mixer == MIXER_ATTN:
+                    out, _ = attn.attend_decode(cfg, params, h, state,
+                                                cache.pos_t)
+                else:
+                    out, new = _DECODE[spec.mixer](cfg, params, h, state)
+                    for t, n in zip(state, new):
+                        assign(t, n)
+                x, h, _ = _residuals(cfg, spec, block, x, out, norm,
+                                     self._memory(cache, p, i),
+                                     cache.cross_pos_t)
+        with phase("head"):
+            logits = constrain(L.lm_logits(cfg, self.embed, h), "logits")
         cache.pos_t.add_(1)
         return logits, cache._replace(pos=pos + 1)
 

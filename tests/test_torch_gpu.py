@@ -11,7 +11,9 @@ persistent blocks walk fewer items than SMs or many a block; RMSNorm fused with 
 and replayed at positions across its splits, bit-equal to eager calls; then
 the smoke model on the card against the same weights on the CPU, and its
 decode step replayed as a CUDA graph bit for bit against the eager step,
-through the serving engine too.  Tolerances:
+through the serving engine too; the decode graph's nodes labelled by
+phase at capture, a profiled replay's device events in node order, and a
+prefill's phase spans within its device time.  Tolerances:
 fp32 2e-5, bf16 2e-2, as ``test_kernels.py``.  The GBT-histogram kernel is
 held to its exact contract: the bits of numpy's float32 ``np.add.at``; the
 ALA's device paths (LM solve, forest traversal, bank distances) to their
@@ -566,6 +568,149 @@ def test_engine_captures_once_a_signature_under_the_compile_gate(cuda):
     with assert_max_compiles(0, label="same signature") as rep:
         engine.generate(prompts, 9)
     assert rep.count == 0 and engine.captures == 1
+
+
+# -- phase spans: the decode graph's node labels, the prefill's event spans --
+
+PHASE_ARCHS = {"dense": "llama3.1-8b", "moe": "phi3.5-moe-42b-a6.6b"}
+PHASE_FFN = {"dense": {"ffn"}, "moe": {"moe.route", "moe.dispatch",
+                                       "moe.experts", "moe.combine"}}
+KERNEL_KINDS = (("K1", ("rmsnorm",)), ("K3", ("decode_attn",)),
+                ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")),
+                ("sort", ("sort",)), ("elementwise", ("elementwise",)),
+                ("reduce", ("reduce",)), ("index", ("index", "scatter",
+                                                    "gather")))
+
+
+def _kernel_kind(name):
+    """A kernel's kind by the words of its name, which its mangled name
+    (read from the graph) and its demangled one (the profiler's) share."""
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def _phase_model(cuda, kind, **widths):
+    cfg = get_smoke_config(PHASE_ARCHS[kind]).scaled(
+        compute_dtype=torch.bfloat16, **widths)
+    return Model(cfg).init(torch.Generator(cuda).manual_seed(0))
+
+
+def _profiled(fn):
+    """The kept round's events of ``fn`` traced by torch.profiler on the
+    card, after a warm-up round (a trace that starts with the call can lose
+    its first kernels' records)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.append(
+                     p.profiler.kineto_results.events())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return kept[-1]
+
+
+def _device_events(events):
+    """(start ns, end ns, correlation, name) of the kernels, copies and
+    sets: the device events, less the profiler's steps' device twins
+    where a torch build's events have no activity type."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in events:
+        act = getattr(e, "activity_type", lambda: None)()
+        if e.device_type() != DeviceType.CUDA or (
+                e.name().startswith("ProfilerStep") if act is None else
+                act not in ("kernel", "gpu_memcpy", "gpu_memset")):
+            continue
+        out.append((e.start_ns(), e.end_ns(), e.correlation_id(), e.name()))
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(PHASE_ARCHS))
+def test_decode_graph_labels_every_device_node(cuda, kind):
+    """One phase a kernel, memset and memcpy node; K3 is attention's, no
+    GEMM, K1 or K3 kernel goes unlabelled, only the position's advance
+    does."""
+    from repro_torch import phases
+    from repro_torch.inference.engine import DecodeGraph
+    graph = DecodeGraph(_phase_model(cuda, kind), 2, 24)
+    kinds = [k for k, _ in phases.graph_nodes(graph.graph.raw_cuda_graph())
+             if k in phases.DEVICE_NODE_KINDS]
+    labels = graph.node_phases
+    assert len(labels) == len(kinds)
+    assert phases.STORE.node_phases == labels
+    assert phases.STORE.signature == (2, 24)
+    assert set(labels) == {"embed", "norm", "attn.proj", "attn.kernel",
+                           "head", "sample", "unlabelled"} | PHASE_FFN[kind]
+    names = graph.kernel_names()
+    of_kernels = [lab for lab, k in zip(labels, kinds) if k == 0]
+    assert len(of_kernels) == len(names)
+    for name, lab in zip(names, of_kernels):
+        if "decode_attn" in name:
+            assert lab == "attn.kernel", name
+        assert lab != "unlabelled" or _kernel_kind(name) == "elementwise", \
+            name
+    assert labels.count("unlabelled") == 1, list(zip(labels, kinds))
+
+
+@pytest.mark.parametrize("kind", sorted(PHASE_ARCHS))
+def test_a_replays_device_events_are_its_nodes_in_order(cuda, kind):
+    """A profiled replay runs one device event a labelled node, and its
+    kernels, sorted by start, are ``kernel_names()`` in order."""
+    from repro_torch import phases
+    from repro_torch.inference.engine import DecodeGraph
+    graph = DecodeGraph(_phase_model(cuda, kind), 2, 24)
+    events = _device_events(_profiled(graph.replay))
+    assert len({corr for _, _, corr, _ in events}) == 1
+    events.sort()
+    kinds = [k for k, _ in phases.graph_nodes(graph.graph.raw_cuda_graph())
+             if k in phases.DEVICE_NODE_KINDS]
+    assert len(events) == len(graph.node_phases) == len(kinds)
+    kernels = [ev[3] for ev, k in zip(events, kinds) if k == 0]
+    assert [_kernel_kind(n) for n in kernels] == \
+        [_kernel_kind(n) for n in graph.kernel_names()]
+
+
+@pytest.mark.parametrize("kind", sorted(PHASE_ARCHS))
+def test_prefill_phase_spans_fit_in_its_device_time(cuda, kind):
+    """Under the profiler each of the prefill's phases takes device time;
+    the CUDA-event spans of attention and the FFN add up to no more than
+    the device's busy time inside ``engine.prefill``, and all spans to no
+    more than its wall time.  An event span holds any idle time inside it
+    (at the prefill's start, the device waits on the host), so the model
+    is sized for a prefill that keeps the device busy, as the benchmark's
+    cells do: 16,384 tokens at llama3.1-8b's widths, two layers."""
+    from torch.autograd import DeviceType
+    from repro_torch import phases
+    from repro_torch.inference.engine import ServingEngine
+    model = _phase_model(cuda, kind, d_model=4096, n_heads=32, n_kv_heads=8,
+                         d_head=128, d_ff=14336, moe_d_ff=7168)
+    engine = ServingEngine(model)
+    prompts = np.random.default_rng(5).integers(0, model.cfg.vocab_size,
+                                                (8, 2048))
+    engine.generate(prompts, 2)
+    events = _profiled(lambda: engine.generate(prompts, 2))
+    lo, hi = next((e.start_ns(), e.end_ns()) for e in events
+                  if e.device_type() != DeviceType.CUDA
+                  and e.name() == "engine.prefill")
+    busy, at = 0, lo
+    for s, e, *_ in sorted(_device_events(events)):
+        s, e = max(s, at), min(e, hi)
+        if e > s:
+            busy, at = busy + e - s, e
+    spans = [s for s in phases.STORE.spans if s.within == "engine.prefill"]
+    assert {s.name for s in spans} == {"embed", "norm", "attn.proj",
+                                       "attn.kernel", "head",
+                                       "sample"} | PHASE_FFN[kind]
+    assert all(s.device_ms > 0 for s in spans)
+    layers = ("attn.proj", "attn.kernel", "ffn") + tuple(PHASE_FFN["moe"])
+    assert sum(s.device_ms for s in spans if s.name in layers) <= busy / 1e6
+    assert sum(s.device_ms for s in spans) <= (hi - lo) / 1e6
 
 
 def _hist_inputs(seed, L, n, f, n_nodes, n_bins):
